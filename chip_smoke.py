@@ -15,8 +15,10 @@ the script exits non-zero without its result line):
 2. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at edge shapes (exact for integers and
    ranks; float sums within 1e-6 of the per-segment sum of |values| plus
-   one unit in the last place of the output dtype), and times the kernel,
-   its plain version and (K1) the library call ``index_add_``;
+   one unit in the last place of the output dtype), checks that two calls
+   on one input give the same bits (K2, and K1 on integers), and times
+   the kernel, its plain version and (K1) the library call
+   ``index_add_``, with the device kernels each call runs;
 3. Phase A: the Presence headline on one shard — 1M PlayerGrains, one
    fresh tick, then K=8 scanned heartbeat rounds per super;
 4. Phase B: the ``bench.py --devices 8`` super-round with 8 logical
@@ -39,6 +41,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -77,9 +80,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_breakdown(fn, iters: int = 20) -> dict[str, float]:
-    """Device ms per call of each CUDA kernel that ``fn`` launches, by
-    kernel name, from torch.profiler's trace of ``iters`` calls."""
+def device_profile(fn, iters: int = 20) -> dict[str, tuple[float, float]]:
+    """(device ms, launches) per call of each CUDA kernel that ``fn``
+    launches, by kernel name, from torch.profiler's trace of ``iters``
+    calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -96,8 +100,43 @@ def device_breakdown(fn, iters: int = 20) -> dict[str, float]:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        out[e.key] = out.get(e.key, 0.0) + us / 1e3 / iters
+        ms, n = out.get(e.key, (0.0, 0.0))
+        out[e.key] = (ms + us / 1e3 / iters, n + e.count / iters)
     return out
+
+
+def device_breakdown(fn, iters: int = 20) -> dict[str, float]:
+    """Device ms per call of each CUDA kernel that ``fn`` launches."""
+    return {k: ms for k, (ms, _) in device_profile(fn, iters).items()}
+
+
+def sass_summary(kernel) -> None:
+    """Per device function of a kernel's library, the count of each SASS
+    opcode (with its modifiers) that says how its loops load, match, add
+    and synchronise (from ``cuobjdump -sass``; skipped where the tool is
+    missing)."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print(f"  {kernel.name}: SASS not read (no cuobjdump)")
+        return
+    out = subprocess.run([tool, "-sass", str(kernel.library)],
+                         capture_output=True, text=True, timeout=120)
+    kinds = {"ATOMS", "ATOMG", "REDG", "MATCH", "VOTE", "REDUX", "SHFL",
+             "LDG", "STG", "LDS", "STS", "UCGABAR_ARV", "UCGABAR_WAIT",
+             "BAR", "NANOSLEEP"}
+    op = re.compile(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+    fn, counts = None, {}
+    for line in out.stdout.splitlines() + ["Function : <end>"]:
+        if "Function :" in line:
+            if fn is not None:
+                print(f"  {kernel.name} SASS {fn}: " + ", ".join(
+                    f"{o} {c}" for o, c in sorted(counts.items())))
+            fn, counts = line.split("Function :")[1].strip(), {}
+            continue
+        m = op.search(line)
+        if m and m.group(1).split(".")[0] in kinds:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
 
 
 def report_breakdown(label: str, kernels: dict, wall_ms: float) -> None:
@@ -245,7 +284,16 @@ def main_path_inputs(dev, gen):
     return dest, values, ids
 
 
+def check_repeat(fn, label) -> None:
+    """Two calls of a kernel on the same input give the same bits."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b), f"{label}: two calls differ"
+    print(f"  {label}: two calls equal to the bit")
+
+
 def kernel_checks(dev):
+    from orleans_tpu_torch.ops import rank_by_dest, segment_sum
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     errs = {"segment_sum": 0.0, "rank_by_dest": 0.0}
@@ -261,6 +309,29 @@ def kernel_checks(dev):
     print("kernel checks (kernel against its plain version, on the card):")
     seg(values, ids, 128, "main path (Phase B fan-in)")
     rank(dest, SHARDS_B + 1, "main path (Phase B route)")
+    # two calls on the same input: K2 equal to the bit, K1 exact (integers)
+    check_repeat(lambda: segment_sum(values, ids, 128), "K1 main path")
+    check_repeat(lambda: rank_by_dest(dest, SHARDS_B + 1), "K2 main path")
+    # odd B: every row after the first starts off 16-byte alignment
+    seg(torch.randint(0, 6, (3, 10001), generator=gen, device=dev,
+                      dtype=torch.int32),
+        torch.randint(-1, 51, (3, 10001), generator=gen, device=dev,
+                      dtype=torch.int32), 50, "odd B int32, 3 rows")
+    seg(torch.randn(5, 777, 3, generator=gen, device=dev),
+        torch.randint(-2, 20, (5, 777), generator=gen, device=dev,
+                      dtype=torch.int32), 20, "odd B float32 D=3, 5 rows")
+    seg(torch.randn(3, 4099, generator=gen, device=dev).half(),
+        torch.randint(0, 30, (3, 4099), generator=gen, device=dev,
+                      dtype=torch.int32), 30, "odd B float16, 3 rows")
+    rank(torch.randint(0, 7, (5, 1001), generator=gen, device=dev,
+                       dtype=torch.int32), 7, "odd B, 5 rows")
+    many = torch.randint(0, 5, (3, 300_001), generator=gen, device=dev,
+                         dtype=torch.int32)
+    rank(many, 5, "odd B, 3 rows of several clusters each")
+    check_repeat(lambda: rank_by_dest(many, 5), "K2 several clusters a row")
+    ones = torch.randint(0, 2, (3, 300_001), generator=gen, device=dev,
+                         dtype=torch.int32)
+    check_repeat(lambda: segment_sum(ones, many, 5), "K1 odd B int32")
     # edge shapes: ragged B, out-of-range ids, 1-D and 2-D, float types,
     # every lane one segment or dest, every lane distinct, large S*D
     fv = torch.randn(1000, generator=gen, device=dev)
@@ -285,9 +356,15 @@ def kernel_checks(dev):
     rank(torch.zeros(100_000, dtype=torch.int32, device=dev), 3,
          "every lane one dest")
     rank(torch.arange(1000, dtype=torch.int32, device=dev), 1000,
-         "every lane distinct (128 KB shared)")
-    rank(torch.randint(0, 2, (1_048_576,), generator=gen, device=dev,
-                       dtype=torch.int32), 2, "one shard, 1M lanes")
+         "every lane distinct, S = 1000")
+    # the main path's shapes once more, after calls of other shapes have
+    # used each kernel's scratch
+    seg(values, ids, 128, "main path again, after the other shapes")
+    big = torch.randint(0, 2, (1_048_576,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    rank(big, 2, "one shard, 1M lanes")
+    check_repeat(lambda: rank_by_dest(big, 2), "K2 one shard, 1M lanes")
+    rank(dest, SHARDS_B + 1, "main path again, after the other shapes")
     return errs, (dest, values, ids)
 
 
@@ -317,25 +394,32 @@ def kernel_times(dest, values, ids):
         return torch.zeros(n * S, dtype=values.dtype,
                            device=values.device).index_add_(0, flat, vals)
 
+    from orleans_tpu_torch.ops import rank_plan, segment_sum_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k1_plan = segment_sum_plan(n, ids.shape[1], 1, S, sms)
+    k2_plan = rank_plan(*dest.shape, SHARDS_B + 1)
+    print(f"  plans on {sms} SMs: K1 {k1_plan}; K2 {k2_plan} (cluster size "
+          f"8 where the card holds no cluster of 16)")
     out = {}
     for name, fn, own, plain, library, nbytes in (
-            ("segment_sum", seg, ("segment_sum_kernel",),
+            ("segment_sum", seg, "segment_sum_kernel",
              lambda: segment_sum_ref(values, ids, S), lib,
              values.nbytes + ids.nbytes + n * S * values.element_size()),
-            ("rank_by_dest", rank, ("rank_histogram", "rank_scan_tiles",
-                                    "rank_within_tile"),
+            ("rank_by_dest", rank, "rank_by_dest_kernel",
              lambda: rank_by_dest_ref(dest, SHARDS_B + 1), None,
              dest.nbytes * 2)):  # each input read once, output written once
         ms = time_ms(fn)
-        kernels = device_breakdown(fn)
-        device_ms = sum(t for k, t in kernels.items()
-                        if any(o in k for o in own))
-        print(f"  {name}: wrapper {ms:.4f} ms/call; device kernels per call:")
-        for k, t in sorted(kernels.items(), key=lambda kv: -kv[1]):
-            print(f"    {t:.4f} ms  {k[:90]}")
+        kernels = device_profile(fn)
+        device_ms = sum(t for k, (t, _) in kernels.items() if own in k)
+        per_call = sum(c for _, c in kernels.values())
+        print(f"  {name}: wrapper {ms:.4f} ms/call; {per_call:g} device "
+              f"kernels per call:")
+        for k, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
+            print(f"    {t:.4f} ms  x{c:g}  {k[:90]}")
+        assert device_ms > 0, f"{name}: no device time for {own}"
         out[name] = (ms, device_ms, time_ms(plain, iters=5),
                      time_ms(library) if library else None,
-                     nbytes / HBM_BYTES_PER_S * 1e3)
+                     nbytes / HBM_BYTES_PER_S * 1e3, per_call)
     return out
 
 
@@ -576,8 +660,10 @@ def main() -> int:
     print(f"build: {len(KERNELS)} kernels in {secs:.3f} s")
     for k in KERNELS:
         for line in k.build_log.splitlines():
-            if "registers" in line or "error" in line.lower():
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill")) or "error" in line.lower():
                 print(f"  {k.name}: {line.strip()}")
+        sass_summary(k)
 
     errs, main_inputs = kernel_checks(dev)
     print("kernel times at the main path's shapes:")
@@ -602,13 +688,14 @@ def main() -> int:
                                    "rank_by_dest.cu")}
     rows = []
     for k in KERNELS:
-        ms, device_ms, plain, lib, bound = times[k.name]
+        ms, device_ms, plain, lib, bound, per_call = times[k.name]
         rows.append({
             "name": k.name, "route": "cuda", "source": sources[k.name][1],
             "replaces": sources[k.name][0], "launches": launches[k.name],
             "max_abs_err": errs[k.name], "ms": ms, "kernel_ms": ms,
-            "device_ms": device_ms, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": "bytes", "library_ms": lib})
+            "device_ms": device_ms, "device_kernels_per_call": per_call,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": lib})
     assert all(math.isfinite(r["ms"]) for r in rows)
     print(f"Phase A headline: {rate_a:.0f} msgs/sec on {card}")
     print(json.dumps({"kernels": rows}))

@@ -17,6 +17,7 @@ from .route import (
     rank_by_dest,
     rank_by_dest_ref,
     rank_dense_keys,
+    rank_plan,
 )
 from .segment_reduce import (
     REDUCE_OPS,
@@ -25,6 +26,7 @@ from .segment_reduce import (
     masked_reduce,
     segment_sum,
     segment_sum_onehot,
+    segment_sum_plan,
     segment_sum_ref,
 )
 
@@ -40,9 +42,11 @@ __all__ = [
     "segment_sum",
     "segment_sum_onehot",
     "segment_sum_ref",
+    "segment_sum_plan",
     "rank_by_dest",
     "rank_by_dest_ref",
     "rank_dense_keys",
+    "rank_plan",
     "pack_by_dest",
     "device_lookup",
     "device_lookup64",

@@ -10,7 +10,8 @@ once.
 
 Each :class:`Kernel` also carries the count of its launches, a plain
 integer that its wrapper raises by one per launch: a run reads it to show
-that its path went through the kernel.
+that its path went through the kernel; and its scratch, device memory
+that it keeps from call to call (see :meth:`Kernel.scratch`).
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "Kernel", "build_all", "check"]
+import torch
+
+__all__ = ["BUILD_DIR", "CSRC", "Kernel", "build_all", "check", "sm_count"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -43,21 +46,26 @@ def _nvcc() -> str:
 
 
 class Kernel:
-    """One CUDA source, its loaded library and its launch count."""
+    """One CUDA source, its loaded library and its launch count.
+    ``defines`` are extra ``-D`` flags: a measurement build of a source
+    (see ``scripts/torch_kernel_plans.py``)."""
 
-    def __init__(self, name: str, source: str, signatures: dict):
+    def __init__(self, name: str, source: str, signatures: dict,
+                 defines: tuple = ()):
         self.name = name
         self.source = CSRC / source
+        self.flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
         # C function name → (restype, argtypes)
         self.signatures = signatures
         self.launches = 0
         self.build_log = ""
         self._lib: ctypes.CDLL | None = None
+        self._scratch: dict = {}
 
     @property
     def library(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes()
-                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                           + " ".join(self.flags).encode()).hexdigest()[:16]
         return BUILD_DIR / f"{self.name}-{h}.so"
 
     def _start_build(self) -> subprocess.Popen | None:
@@ -66,7 +74,7 @@ class Kernel:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
         return subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            [_nvcc(), *self.flags, "-o", str(tmp), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def _finish_build(self, proc: subprocess.Popen) -> None:
@@ -90,6 +98,36 @@ class Kernel:
                 getattr(lib, fn).argtypes = argtypes
             self._lib = lib
         return self._lib
+
+    def scratch(self, words: int, dtype: torch.dtype, device: torch.device,
+                stream: int, zeroed: bool = True) -> int | None:
+        """The address of ``words`` words of ``dtype`` on ``device`` that
+        the kernel keeps from call to call, or None for 0 words: one
+        buffer per device and stream (``stream``, a ``cudaStream_t``),
+        grown but never shrunk. A zeroed buffer is zeroed when it is made
+        or grown, and the kernel must leave every word of it zero when it
+        ends, so that no call needs a memset; the other buffer's content
+        is the kernel's. Calls on one stream never overlap in either."""
+        if words == 0:
+            return None
+        key = (device.index, stream, zeroed)
+        buf = self._scratch.get(key)
+        if buf is None or buf.numel() < words or buf.dtype != dtype:
+            make = torch.zeros if zeroed else torch.empty
+            buf = make(words, dtype=dtype, device=device)
+            self._scratch[key] = buf
+        return buf.data_ptr()
+
+
+_sms: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device, asked once."""
+    if device.index not in _sms:
+        _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device.index]
 
 
 def build_all(kernels) -> float:

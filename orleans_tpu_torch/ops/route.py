@@ -17,28 +17,38 @@ pairwise mask below 512 lanes, a cumulative one-hot count above.
 ``rank_dense_keys`` past 32,768 lanes, as the JAX package does.
 
 Shards: ``dest`` of shape ``[n, B]`` ranks each row on its own, in ONE
-kernel launch over ``n * n_dest`` destinations (the kernel offsets each
-shard's dest by ``shard * n_dest``).
+kernel launch; each block of the kernel ranks a tile of one row over that
+row's ``n_dest`` destinations. :func:`rank_plan` is the launch plan: a
+pure function of the shape that the tests check on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ._build import Kernel, check
 
 __all__ = ["rank_by_dest", "rank_by_dest_ref", "rank_dense_keys",
-           "pack_by_dest", "RANK_BY_DEST"]
+           "pack_by_dest", "rank_plan", "RankPlan", "RANK_BY_DEST"]
 
 RANK_BY_DEST = Kernel(
     "rank_by_dest", "rank_by_dest.cu",
     {"oat_rank_by_dest": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
-     "oat_rank_by_dest_max_dests": (ctypes.c_int, [])})
-_TILE = 1024  # lanes per block of the kernel (csrc/rank_by_dest.cu)
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
+     "oat_rank_by_dest_max_cluster": (ctypes.c_int, [ctypes.c_int])})
+# the kernel's constants (csrc/rank_by_dest.cu)
+_THREADS = 512
+_WARPS = _THREADS // 32
+_MAX_SHARED = 232448 - 1024   # dynamic shared memory a block may opt into
+TILE = 16 * _THREADS           # lanes of one block: 16 a thread
+_MAX_CLUSTER = 16
+_MAX_LANES = 2**31 - 1        # per row: the kernel's row index math is int32
 _PAIRWISE_BELOW = 512  # the JAX package's small-batch regime
 _SORT_ABOVE = 32768    # the JAX package's sort-based regime in pack_by_dest
 
@@ -69,6 +79,70 @@ def rank_by_dest_ref(dest: torch.Tensor, n_dest: int) -> torch.Tensor:
     raise ValueError(f"dest must be [B] or [n, B], got {tuple(d.shape)}")
 
 
+def _shared_bytes(n_dest: int, cluster_size: int) -> int:
+    """Shared memory of one block: the tile, then per destination the
+    per-warp counts, the totals of the cluster's earlier tiles, and the
+    tile's total and offset."""
+    return 4 * (TILE + (_WARPS + cluster_size + 2) * n_dest)
+
+
+class RankPlan(NamedTuple):
+    """How K2 covers ``rows`` rows of B lanes: blocks of 512 threads x
+    16 lanes (one tile of :data:`TILE` lanes of one row each), grouped in
+    clusters of ``cluster_size`` blocks, ``clusters_per_row`` clusters
+    per row, and ``scratch_words`` zeroed 64-bit words (a ticket, a done
+    count and one look-back word per row, cluster and destination) when a
+    row takes more than one cluster."""
+    cluster_size: int
+    clusters_per_row: int
+    scratch_words: int
+
+
+@functools.lru_cache(maxsize=256)
+def rank_plan(rows: int, B: int, n_dest: int,
+              max_cluster: int = _MAX_CLUSTER) -> RankPlan:
+    """K2's launch plan for ``[rows, B]`` dest over ``n_dest``
+    destinations on a card that holds clusters of up to ``max_cluster``
+    blocks: a row takes as few clusters as the cluster size allows, its
+    tiles spread evenly over them. Raises ValueError for a shape the
+    kernel does not take."""
+    if rows < 1 or B < 0 or n_dest < 1:
+        raise ValueError(f"rank_by_dest needs rows >= 1, B >= 0, n_dest >= 1;"
+                         f" got {rows}, {B}, {n_dest}")
+    if B > _MAX_LANES:
+        raise ValueError(f"rank_by_dest kernel takes at most {_MAX_LANES} "
+                         f"lanes per row; got {B}")
+    if n_dest > max_dests():
+        raise ValueError(
+            f"rank_by_dest kernel holds per-warp counts of at most "
+            f"{max_dests()} destinations per row in shared memory; got "
+            f"{n_dest}")
+    tiles = max(1, -(-B // TILE))
+    room = max(c for c in range(1, _MAX_CLUSTER + 1)
+               if _shared_bytes(n_dest, c) <= _MAX_SHARED)
+    per_row = -(-tiles // min(max_cluster, room))
+    size = -(-tiles // per_row)
+    scratch = 2 + rows * per_row * n_dest if per_row > 1 else 0
+    return RankPlan(size, per_row, scratch)
+
+
+def max_dests() -> int:
+    """The most destinations per row that K2 takes."""
+    return (_MAX_SHARED // 4 - TILE) // (_WARPS + 3)
+
+
+_max_cluster: dict = {}
+
+
+def _cluster_limit(lib, device: torch.device, n_dest: int) -> int:
+    """The card's cluster limit at ``n_dest`` destinations (16, or 8
+    where the non-portable size does not fit), asked once per count."""
+    key = (device.index, n_dest)
+    if key not in _max_cluster:
+        _max_cluster[key] = lib.oat_rank_by_dest_max_cluster(n_dest)
+    return _max_cluster[key]
+
+
 def _rank_by_dest_cuda(dest: torch.Tensor, n_dest: int) -> torch.Tensor:
     if dest.ndim not in (1, 2):
         raise ValueError(f"dest must be [B] or [n, B], got "
@@ -76,20 +150,29 @@ def _rank_by_dest_cuda(dest: torch.Tensor, n_dest: int) -> torch.Tensor:
     d = dest if dest.dtype == torch.int32 else dest.to(torch.int32)
     d = d.contiguous()
     n, B = (1, d.shape[0]) if d.ndim == 1 else d.shape
-    lib = RANK_BY_DEST.lib()
-    if n * n_dest > lib.oat_rank_by_dest_max_dests():
-        raise ValueError(
-            f"rank_by_dest kernel takes at most "
-            f"{lib.oat_rank_by_dest_max_dests()} destinations (shards x "
-            f"n_dest) per launch; got {n * n_dest}")
+    if n == 0 or B == 0:
+        return torch.empty(d.shape, dtype=torch.int32, device=d.device)
+    plan = rank_plan(n, B, n_dest)
+    limit = _cluster_limit(RANK_BY_DEST.lib(), d.device, n_dest)
+    if plan.cluster_size > limit:
+        plan = rank_plan(n, B, n_dest, limit)
+    return launch_rank(d, n_dest, plan)
+
+
+def launch_rank(d: torch.Tensor, n_dest: int, plan: RankPlan,
+                kernel: Kernel = RANK_BY_DEST) -> torch.Tensor:
+    """K2 on a contiguous int32 CUDA ``d`` ([B] or [n, B]) by ``plan``,
+    through ``kernel`` (a measurement build of the same source, or K2)."""
+    n, B = (1, d.shape[0]) if d.ndim == 1 else d.shape
     rank = torch.empty(d.shape, dtype=torch.int32, device=d.device)
-    counts = torch.empty(n * n_dest * max(1, -(-(n * B) // _TILE)),
-                         dtype=torch.int32, device=d.device)
     stream = torch.cuda.current_stream(d.device).cuda_stream
-    rc = lib.oat_rank_by_dest(d.data_ptr(), rank.data_ptr(),
-                              counts.data_ptr(), B, n, n_dest, stream)
+    scratch = kernel.scratch(plan.scratch_words, torch.int64, d.device,
+                             stream)
+    rc = kernel.lib().oat_rank_by_dest(
+        d.data_ptr(), rank.data_ptr(), scratch, B, n, n_dest,
+        plan.cluster_size, plan.clusters_per_row, stream)
     check(rc, "rank_by_dest")
-    RANK_BY_DEST.launches += 1
+    kernel.launches += 1
     return rank
 
 

@@ -11,40 +11,92 @@ shape):
 (``csrc/segment_sum.cu``, the port of the TPU kernel
 ``segment_sum_pallas``) for every CUDA tensor, whatever its shape, and
 raises for what the kernel does not take. On a CPU tensor it runs the
-plain version ``segment_sum_ref``. Both accumulate in float32 and cast
-back to the values' dtype, the TPU kernel's contract: integer values are
-exact only while each per-segment sum stays below 2^24, and float sums
-differ from another summation order by float reassociation (the tests
-allow rtol 1e-6 of sum |values|).
+plain version ``segment_sum_ref``. Float values accumulate in float32 and
+come back in their dtype, the TPU kernel's contract; float sums differ
+from another summation order by float reassociation (the tests allow
+rtol 1e-6 of sum |values|). Integer values are exact while each
+per-segment sum stays below 2^24 (the plain version's float32
+accumulator; the kernel sums integers in int32).
 
 Shards: ``seg_ids`` of shape ``[n, B]`` (values ``[n, B]`` or
-``[n, B, D]``) reduces each shard row on its own, giving ``[n, S(, D)]``;
-it is ONE launch over ``n * S`` segments, the kernel offsetting each
-shard's ids by ``shard * S``.
+``[n, B, D]``) reduces each shard row on its own, giving ``[n, S(, D)]``,
+in ONE launch; each block of the kernel folds a slice of one row.
+:func:`segment_sum_plan` is the launch plan: a pure function of the
+shape that the tests check on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ._build import Kernel, check
+from ._build import Kernel, check, sm_count
 
 __all__ = ["segment_sum", "segment_sum_ref", "segment_sum_onehot",
-           "masked_reduce", "host_fold", "REDUCE_OPS", "SEGMENT_SUM"]
+           "segment_sum_plan", "SegmentSumPlan", "masked_reduce",
+           "host_fold", "REDUCE_OPS", "SEGMENT_SUM"]
 
 _LAUNCH_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p]
 _FN_BY_DTYPE = {torch.float32: "oat_segment_sum_f32",
                 torch.int32: "oat_segment_sum_i32",
                 torch.float16: "oat_segment_sum_f16"}
 SEGMENT_SUM = Kernel(
     "segment_sum", "segment_sum.cu",
-    {**{fn: (ctypes.c_int, _LAUNCH_ARGS) for fn in _FN_BY_DTYPE.values()},
-     "oat_segment_sum_max_cells": (ctypes.c_int, [])})
+    {fn: (ctypes.c_int, _LAUNCH_ARGS) for fn in _FN_BY_DTYPE.values()})
+# the kernel's limits (csrc/segment_sum.cu)
+_MAX_CELLS = (232448 - 1024) // 4  # S*D 4-byte cells in shared memory
+_MAX_ELEMS = 2**31 - 1             # B*D per row: int32 index math
+_MIN_LANES = 2048                  # lanes per block, at the least
+
+
+class SegmentSumPlan(NamedTuple):
+    """How K1 covers ``rows`` rows of B lanes: ``blocks_per_row`` blocks
+    per row, each folding ``chunk`` lanes (a multiple of 4, so that a
+    slice of an aligned row starts aligned). When a row takes more than
+    one block, the kernel needs ``counter_words`` zeroed 32-bit words (a
+    counter per row, which it leaves zeroed) and ``partial_words`` 32-bit
+    words (one histogram per block)."""
+    chunk: int
+    blocks_per_row: int
+    counter_words: int
+    partial_words: int
+
+
+@functools.lru_cache(maxsize=256)
+def segment_sum_plan(rows: int, B: int, D: int, S: int,
+                     n_sms: int = 132) -> SegmentSumPlan:
+    """K1's launch plan for ``[rows, B, D]`` values into ``S`` segments
+    on a card of ``n_sms`` SMs: about one block per SM over all rows,
+    each with at least 2048 lanes and with at least four elements per
+    histogram cell it writes to scratch. Raises ValueError for a shape
+    the kernel does not take."""
+    if rows < 1 or B < 0 or D < 1 or S < 1:
+        raise ValueError(f"segment_sum needs rows >= 1, B >= 0, D >= 1, "
+                         f"S >= 1; got {rows}, {B}, {D}, {S}")
+    cells = S * D
+    if cells > _MAX_CELLS:
+        raise ValueError(f"segment_sum kernel holds at most {_MAX_CELLS} "
+                         f"4-byte cells per block in shared memory; got "
+                         f"S*D = {cells}")
+    if B * D > _MAX_ELEMS:
+        raise ValueError(f"segment_sum kernel takes at most {_MAX_ELEMS} "
+                         f"elements per row; got B*D = {B * D}")
+    want = n_sms // rows
+    cap = max(1, min(B // _MIN_LANES, B * D // (4 * cells)))
+    per_row = max(1, min(want, cap))
+    lanes = -(-B // per_row)
+    chunk = max(4, (lanes + 3) // 4 * 4)
+    per_row = max(1, -(-B // chunk))
+    if per_row == 1:
+        return SegmentSumPlan(chunk, 1, 0, 0)
+    return SegmentSumPlan(chunk, per_row, rows, rows * per_row * cells)
 
 
 def _rows(values: torch.Tensor, seg_ids: torch.Tensor):
@@ -69,9 +121,9 @@ def _rows(values: torch.Tensor, seg_ids: torch.Tensor):
                      f"{tuple(seg_ids.shape)}")
 
 
-def _finish(out32: torch.Tensor, batched: bool, squeeze: bool, dtype):
-    """[n, S, D] float32 → the caller's shape in ``dtype``."""
-    out = out32.to(dtype)
+def _finish(out: torch.Tensor, batched: bool, squeeze: bool, dtype):
+    """[n, S, D] → the caller's shape in ``dtype``."""
+    out = out.to(dtype)
     out = out if batched else out[0]
     return out[..., 0] if squeeze else out
 
@@ -119,31 +171,40 @@ def segment_sum_onehot(values: torch.Tensor, seg_ids: torch.Tensor,
 
 def _segment_sum_cuda(values, seg_ids, num_segments):
     v, ids, squeeze = _rows(values, seg_ids)
-    fn = _FN_BY_DTYPE.get(values.dtype)
-    if fn is None:
+    if values.dtype not in _FN_BY_DTYPE:
         raise TypeError(f"segment_sum kernel takes "
                         f"{sorted(map(str, _FN_BY_DTYPE))}, got {values.dtype}")
     if ids.device != v.device:
         raise ValueError("values and seg_ids must be on the same device")
-    if ids.dtype != torch.int32:
-        ids = ids.to(torch.int32)
     n, B, D = v.shape
-    S = num_segments
-    lib = SEGMENT_SUM.lib()
-    if n * S * D > lib.oat_segment_sum_max_cells():
-        raise ValueError(
-            f"segment_sum kernel holds at most "
-            f"{lib.oat_segment_sum_max_cells()} float32 cells per block in "
-            f"shared memory; got shards*S*D = {n * S * D}")
-    v = v.contiguous()
-    ids = ids.contiguous()
-    out = torch.zeros((n, S, D), dtype=torch.float32, device=v.device)
+    if n == 0:
+        out = torch.empty((0, num_segments, D), dtype=values.dtype,
+                          device=v.device)
+    else:
+        plan = segment_sum_plan(n, B, D, num_segments, sm_count(v.device))
+        out = launch_segment_sum(v.contiguous(),
+                                 ids.to(torch.int32).contiguous(),
+                                 num_segments, plan)
+    return _finish(out, seg_ids.ndim == 2, squeeze, values.dtype)
+
+
+def launch_segment_sum(v: torch.Tensor, ids: torch.Tensor, S: int,
+                       plan: SegmentSumPlan) -> torch.Tensor:
+    """K1 on contiguous CUDA ``v`` [n, B, D] and int32 ``ids`` [n, B] by
+    ``plan``; returns [n, S, D] in ``v``'s dtype."""
+    n, B, D = v.shape
+    out = torch.empty((n, S, D), dtype=v.dtype, device=v.device)
     stream = torch.cuda.current_stream(v.device).cuda_stream
-    rc = getattr(lib, fn)(v.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                          B, n, D, S, stream)
+    counters = SEGMENT_SUM.scratch(plan.counter_words, torch.int32,
+                                   v.device, stream)
+    partials = SEGMENT_SUM.scratch(plan.partial_words, torch.int32,
+                                   v.device, stream, zeroed=False)
+    rc = getattr(SEGMENT_SUM.lib(), _FN_BY_DTYPE[v.dtype])(
+        v.data_ptr(), ids.data_ptr(), out.data_ptr(), counters, partials, B,
+        n, D, S, plan.chunk, plan.blocks_per_row, stream)
     check(rc, "segment_sum")
     SEGMENT_SUM.launches += 1
-    return _finish(out, seg_ids.ndim == 2, squeeze, values.dtype)
+    return out
 
 
 def segment_sum(values: torch.Tensor, seg_ids: torch.Tensor,

@@ -121,6 +121,39 @@ def test_segment_sum_rejects_bad_shapes():
         tseg.segment_sum(torch.zeros(5), torch.zeros(4, dtype=torch.int32), 3)
 
 
+# K1's launch plan at the edge shapes: (rows, B, D, S). The kernel
+# (csrc/segment_sum.cu) gives block b of row r the lanes [b * chunk,
+# min(B, (b + 1) * chunk)) and, when a row has several blocks, indexes
+# counter word r and partial word (r * bpr + b) * S * D + c.
+SEG_PLAN_CASES = [
+    (8, 156_256, 1, 128),   # the bench's fan-in
+    (3, 10_001, 1, 50),     # odd B: rows start off 16-byte alignment
+    (5, 777, 3, 20),        # ragged, D > 1
+    (1, 1 << 20, 1, 2),     # one row of 1M lanes
+    (1, 5_000, 1, 1_000),   # S = 1000
+    (1, 20_000, 8, 4_096),  # S * D = 32,768
+    (2, 0, 1, 3),           # no lanes: one block a row writes zeros
+]
+
+
+@pytest.mark.parametrize("rows,B,D,S", SEG_PLAN_CASES)
+def test_segment_sum_plan_covers_the_rows(rows, B, D, S):
+    plan = tseg.segment_sum_plan(rows, B, D, S, n_sms=132)
+    chunk, bpr = plan.chunk, plan.blocks_per_row
+    assert chunk >= 4 and chunk % 4 == 0 and bpr >= 1
+    assert chunk * bpr >= B and (B == 0 or chunk * (bpr - 1) < B)
+    assert chunk * D < 2**31 and 4 * S * D <= 232448 - 1024
+    assert bpr * rows <= 132 or bpr == 1  # at most one block an SM
+    if bpr == 1:
+        assert plan.counter_words == plan.partial_words == 0
+    else:
+        assert rows - 1 < plan.counter_words
+        last = ((rows - 1) * bpr + bpr - 1) * S * D + S * D - 1
+        assert last < plan.partial_words
+    with pytest.raises(ValueError):
+        tseg.segment_sum_plan(rows, B, D, 60_000)
+
+
 # ---------------------------------------------------------------------------
 # masked_reduce
 # ---------------------------------------------------------------------------
@@ -206,6 +239,40 @@ def test_rank_sharded_is_per_row():
     for s in range(3):
         np.testing.assert_array_equal(
             got[s], np.asarray(jroute.rank_dense_keys(jnp.asarray(d[s]))))
+
+
+# K2's launch plan at the edge shapes: (rows, B, S, max_cluster). The
+# kernel (csrc/rank_by_dest.cu) gives block q of cluster k of a row the
+# tile (k * cluster_size + q) of 512 * 16 lanes, holds the tile, per-warp
+# counts and the cluster's totals in shared memory, and, when a row has
+# several clusters, indexes scratch words 0 and 1 (ticket, done count) and
+# 2 + (r * clusters_per_row + k) * S + c.
+RANK_PLAN_CASES = [
+    (8, 131_072, 9, 16),    # the bench's route
+    (8, 131_072, 9, 8),     # where the card holds no cluster of 16
+    (5, 1_001, 7, 16),      # odd B
+    (3, 300_001, 5, 16),    # odd B, several clusters a row
+    (1, 1 << 20, 2, 16),    # one row of 1M lanes
+    (1, 1_000, 1_000, 16),  # S = 1000
+    (8, 2, 9, 16),          # the sparse route's two lanes a shard
+]
+
+
+@pytest.mark.parametrize("rows,B,S,max_cluster", RANK_PLAN_CASES)
+def test_rank_plan_covers_the_rows(rows, B, S, max_cluster):
+    plan = troute.rank_plan(rows, B, S, max_cluster=max_cluster)
+    cs, cpr, tile = plan.cluster_size, plan.clusters_per_row, 512 * 16
+    assert troute.TILE == tile and 1 <= cs <= max_cluster and cpr >= 1
+    assert tile * cs * cpr >= B and tile * cs * (cpr - 1) < B
+    assert 4 * (tile + (16 + cs + 2) * S) <= 232448 - 1024
+    assert 32 * 16 < 2**15 and S + 1 < 2**16  # the kernel's packed lanes
+    if cpr == 1:
+        assert plan.scratch_words == 0
+    else:
+        last = 2 + ((rows - 1) * cpr + cpr - 1) * S + S - 1
+        assert last < plan.scratch_words
+    with pytest.raises(ValueError):
+        troute.rank_plan(rows, B, troute.max_dests() + 1)
 
 
 # ---------------------------------------------------------------------------
