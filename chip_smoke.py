@@ -26,18 +26,36 @@ the script exits non-zero without its result line):
    message to its GameGrain (K2), the fan-in segment sum (K1) and the
    GameGrain tick; 1M messages per super must all arrive;
 5. Phase C: the sparse route of ``__graft_entry__.dryrun_multichip``
-   phase 4 — hashed keys resolved through the on-device directory, one
-   actor targeted twice so that the apply defers a tick;
-6. Phase D: a small Phase B on the card and on the CPU, compared exactly.
+   phase 4 — hashed keys activated through ``call``, resolved through
+   the on-device directory, one actor targeted twice so that the apply
+   defers a tick;
+6. Phase D: a small Phase B on the card and on the CPU, compared exactly;
+7. Phase E: the per-key async tick at Presence width — 1,048,576
+   PlayerGrains over 8 shards, 262,144 heartbeats as 64 ``call_group``
+   groups of 4,096 (keys drawn with replacement, so same-key calls defer
+   over several ticks) and 4,096 hashed-key calls through ``actor()``,
+   run inline and on the off-loop worker; every future must equal its
+   key's count of earlier calls plus one, and both runs must leave the
+   same state;
+8. Phase F: E and G at 20,000 actors on the card and on the CPU,
+   compared exactly;
+9. Phase G: the celebrity fan-out — 1,048,576 subscribers over 8 shards,
+   3 events through ``broadcast_actors`` (every chunk routed through K2)
+   while 1,024 per-key calls are pending, then ``reduce_actors`` (the
+   sum must equal the deliveries), ``map_actors``, ``join_when`` and a
+   reshard 8 → 7 → 8 that keeps the sum.
 
 The launch counts are set to 0 just before Phase A and read just after
-Phase C: a kernel the main path did not launch fails the run. The last
-two lines are the ``kernels`` JSON (launches on the main path, errors and
-times in ms) and ``{"ok": true, "device": ...}``.
+Phase C, and again around Phase E and around Phase G: a kernel of a path
+that was not launched fails the run (A-C launch both kernels, G launches
+K2; E's tick uses neither). The last two lines are the ``kernels`` JSON
+(launches summed over those runs, errors and times in ms) and
+``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
 import math
 import os
@@ -55,6 +73,8 @@ N_PLAYERS = 1_000_000
 N_GAMES = 1024
 K = 8
 SHARDS_B = 8
+N_E = 1 << 20  # Phase E: bench.py's population, rounded to 2^20
+N_G = 1 << 20  # Phase G: subscribers of the celebrity fan-out
 
 
 def card_line() -> str:
@@ -365,7 +385,53 @@ def kernel_checks(dev):
     rank(big, 2, "one shard, 1M lanes")
     check_repeat(lambda: rank_by_dest(big, 2), "K2 one shard, 1M lanes")
     rank(dest, SHARDS_B + 1, "main path again, after the other shapes")
+    # Phase G's routes, built as its first event builds them: full chunks
+    # of 16,384 subscribers at [8, 2048] (one that straddles two owning
+    # shards), the last chunk with its padding on the sink id 8, and the
+    # 1,024 deferred per-key targets at [8, 128]
+    per = -(-N_G // SHARDS_B)
+    for label, targets in g_first_event_chunks(N_G, 16384):
+        g = g_chunk_dest(dev, targets, per)
+        rank(g, SHARDS_B + 1, f"{label} route")
+        check_repeat(lambda: rank_by_dest(g, SHARDS_B + 1), f"K2 {label}")
     return errs, (dest, values, ids)
+
+
+def g_first_event_chunks(n_subs: int, chunk: int):
+    """(label, targets) of three of the chunks that Phase G's first
+    broadcast routes: the subscribers that no per-key call holds go in
+    chunks of ``chunk`` in key order, then the ones it deferred (the
+    busy keys of ``drive_fanout``, same seed) in one last chunk."""
+    busy = np.random.default_rng(4).choice(n_subs, 1024, replace=False)
+    held = np.zeros(n_subs, bool)
+    held[busy] = True
+    ready = np.flatnonzero(~held)
+    per = -(-n_subs // SHARDS_B)
+    starts = range(0, ready.size, chunk)
+    cross = next(o for o in starts
+                 if ready[o] // per != ready[min(o + chunk, ready.size) - 1]
+                 // per)
+    last = starts[-1]
+    return [(f"Phase G chunk at {cross} (two owning shards)",
+             ready[cross:cross + chunk]),
+            (f"Phase G last chunk ({ready.size - last} targets)",
+             ready[last:]),
+            ("Phase G deferred targets", np.flatnonzero(held))]
+
+
+def g_chunk_dest(dev, targets, per):
+    """K2's operand for one broadcast chunk as ``_broadcast_chunk``,
+    ``route`` and ``pack_by_dest`` build it: the E targets split over the
+    source shards in power-of-two rows of L lanes, each lane's owning
+    shard (key // per), and the padding lanes on the sink id."""
+    n = SHARDS_B
+    E = targets.size
+    L = 1 << (-(-E // n) - 1).bit_length()
+    keys = np.zeros(n * L, np.int64)
+    keys[:E] = targets
+    valid = np.arange(n * L) < E
+    dest = np.where(valid, keys // per, n).reshape(n, L)
+    return torch.from_numpy(dest.astype(np.int32)).to(dev)
 
 
 def kernel_times(dest, values, ids):
@@ -558,29 +624,6 @@ def phase_b(dev, card, n_players=N_PLAYERS, supers=3, warm=1, quiet=False):
     return games, {k: v.cpu() for k, v in tbl.state.items()}
 
 
-def activate_hashed(rt, cls, method, hashes, amount):
-    """Allocate each hashed key's slot and fresh-init it in one tick."""
-    tbl = rt.table(cls)
-    locs = [tbl.lookup_or_allocate(h)[:2] for h in hashes]
-    n = tbl.n_shards
-    B = max(sum(1 for s, _ in locs if s == sh) for sh in range(n))
-    slots = np.full((n, B), tbl.sink_slot, np.int32)
-    khash = np.zeros((n, B), np.int32)
-    valid = np.zeros((n, B), bool)
-    amt = np.zeros((n, B), np.int32)
-    fill = [0] * n
-    for h, (s, slot), a in zip(hashes, locs, amount):
-        i = fill[s]
-        fill[s] += 1
-        slots[s, i], khash[s, i], valid[s, i], amt[s, i] = \
-            slot, h & 0x7FFFFFFF, True, a
-
-    def dev(x):
-        return torch.from_numpy(x).to(rt.device)
-    rt.call_batch_device(cls, method, dev(slots), dev(khash), dev(valid),
-                         dev(valid), {"amount": dev(amt)})
-
-
 def phase_c(dev):
     from orleans_tpu_torch.dispatch import VectorRuntime
     from orleans_tpu_torch.ops import split64
@@ -591,7 +634,11 @@ def phase_c(dev):
     ctbl = rt.table(Counter)
     hashes = [((k * 2654435761) ^ (k << 33)) & ((1 << 62) - 1) | (1 << 40)
               for k in range(1, 2 * n + 1)]
-    activate_hashed(rt, Counter, "add", hashes, [0] * len(hashes))
+
+    async def activate():
+        await asyncio.gather(*(
+            rt.call(Counter, h, "add", amount=np.int32(0)) for h in hashes))
+    asyncio.run(activate())
     assert ctbl.device_dir.count == len(hashes)
     B2 = 2
     dest = np.zeros((n, B2), np.int64)
@@ -642,6 +689,330 @@ def phase_d(dev):
           "exactly")
 
 
+def fan_class():
+    from orleans_tpu_torch.dispatch import VectorGrain, actor_method
+
+    class FanVec(VectorGrain):
+        """The celebrity fan-out subscriber of benchmarks/gauntlet.py, with
+        read-only ``events`` and ``ready`` methods for the reductions."""
+
+        STATE = {"events": (torch.int32, ()), "last": (torch.float32, ())}
+
+        @staticmethod
+        def initial_state(key_hash):
+            return {"events": torch.zeros_like(key_hash),
+                    "last": key_hash.new_zeros((), dtype=torch.float32)}
+
+        @actor_method(args={"v": (torch.float32, ())})
+        def on_next(state, args):
+            return {"events": state["events"] + 1,
+                    "last": args["v"]}, state["events"]
+
+        @actor_method(read_only=True)
+        def events(state, args):
+            return state, state["events"]
+
+        @actor_method(read_only=True)
+        def ready(state, args):
+            return state, (state["events"] > 0).to(torch.int32)
+
+    return FanVec
+
+
+def host_state(tbl) -> dict:
+    """A copy of a table's rows on the host, sink row left out
+    (undefined)."""
+    return {k: v[:, :tbl.capacity].cpu().clone()
+            for k, v in tbl.state.items()}
+
+
+def same_state(a: dict, b: dict, label: str) -> None:
+    assert a.keys() == b.keys(), label
+    for k in a:
+        assert torch.equal(a[k], b[k]), f"{label}: field {k} differs"
+
+
+class StageClock:
+    """A ``VectorRuntime.stats`` hook that sums the engine's stage seconds
+    (staging fill, upload, tick = kernel + device + host copy; queue wait
+    per item) and its message count."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
+
+    def observe(self, key: str, value: float) -> None:
+        self.seconds[key] = self.seconds.get(key, 0.0) + value
+        self.counts[key] = self.counts.get(key, 0) + 1
+
+    def increment(self, key: str, n: int = 1) -> None:
+        self.counts[key] = self.counts.get(key, 0) + n
+
+    def line(self, wall: float) -> str:
+        from orleans_tpu_torch.observability import INGEST_STATS as st
+        parts = {name: self.seconds.get(st[name], 0.0)
+                 for name in ("staging", "transfer", "tick")}
+        rest = wall - sum(parts.values())
+        waits = self.counts.get(st["queue_wait"], 0)
+        mean_wait = self.seconds.get(st["queue_wait"], 0.0) / max(1, waits)
+        return (", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
+                + f", the rest (enqueue, claim, resolve, gather) {rest:.3f}"
+                f" s of {wall:.3f} s; mean queue wait {mean_wait * 1e3:.1f}"
+                f" ms over {waits} calls")
+
+
+def heartbeat_schedule(n_players: int, seed: int = 3):
+    """Phase E's traffic: 64 groups of heartbeats to keys drawn with
+    replacement, the float16 positions, and each call's expected
+    ``beats`` (that key's count of earlier calls plus one)."""
+    group = n_players // 4 // 64
+    n_calls = 64 * group
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, n_players, n_calls)
+    pos = rng.random((n_calls, 2), dtype=np.float32).astype(np.float16)
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+    run_start = np.repeat(starts, np.diff(np.r_[starts, n_calls]))
+    expect = np.empty(n_calls, np.int64)
+    expect[order] = np.arange(n_calls) - run_start + 1
+    return group, keys, pos, expect
+
+
+async def drive_heartbeats(rt, Player, Counter, group, keys, pos,
+                           n_hashed=4096):
+    """Enqueue the schedule as call_group groups of ``group`` (every item
+    with a future) plus ``n_hashed`` hashed-key Counter calls, and await
+    all."""
+    futs = []
+    for lo in range(0, keys.size, group):
+        futs += rt.call_group(Player, "heartbeat", [
+            (int(keys[i]), {"pos": pos[i]}, True)
+            for i in range(lo, lo + group)])
+    cfuts = [rt.actor(Counter, f"player-{i}").add(amount=np.int32(i % 97 + 1))
+             for i in range(n_hashed)]
+    out = await asyncio.gather(*futs)
+    cout = await asyncio.gather(*cfuts)
+    await rt.flush()
+    return out, cout
+
+
+def phase_e(dev, card, n_players=N_E, offloop=False, quiet=False):
+    """The per-key async tick at Presence width: 1M dense PlayerGrains
+    over 8 logical shards, 262,144 heartbeats as 64 call_group groups of
+    4,096 (about 30,000 keys called twice or more: conflict-defer over
+    several ticks) and 4,096 hashed-key Counter calls through actor().
+    Returns the Player and Counter state for the comparisons."""
+    from orleans_tpu_torch.config import DispatchOptions
+    from orleans_tpu_torch.dispatch import VectorRuntime
+    from orleans_tpu_torch.parallel import make_mesh
+    Player, _, Counter = player_classes()
+    n = SHARDS_B
+    cap = -(-n_players // n)
+    rt = VectorRuntime(make_mesh(n, dev), options=DispatchOptions(
+        capacity_per_shard=cap, offloop_tick=offloop))
+    rt.table(Player).ensure_dense(n_players)
+    rt.register(Counter, capacity_per_shard=1024)
+    clock = rt.stats = StageClock()
+    group, keys, pos, expect = heartbeat_schedule(n_players)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, cout = asyncio.run(drive_heartbeats(rt, Player, Counter, group,
+                                             keys, pos))
+    wall = time.perf_counter() - t0
+    ticks = rt.ticks
+    rt.shutdown_worker()
+    beats = np.array([int(b) for b in out])
+    assert np.array_equal(beats, expect), "beats off the turn order"
+    tbl = rt.table(Player)
+    touched = np.unique(keys)
+    shard, slot = tbl.dense_shard_slot(touched)
+    game = tbl.state["game"][torch.from_numpy(shard), torch.from_numpy(slot)]
+    assert np.array_equal(game.cpu().numpy(), touched % N_GAMES)
+    last = np.zeros(n_players, np.int64)  # each key's last call
+    np.maximum.at(last, keys, np.arange(keys.size))
+    pos_rows = tbl.state["pos"][torch.from_numpy(shard),
+                                torch.from_numpy(slot)].cpu().numpy()
+    assert np.array_equal(pos_rows, pos[last[touched]].astype(np.float32))
+    ctbl = rt.table(Counter)
+    for i in range(0, 4096, 97):
+        kh = rt.actor(Counter, f"player-{i}").key_hash
+        assert int(ctbl.read_row(kh)["total"]) == i % 97 + 1
+        assert int(cout[i]) == i % 97 + 1
+    assert ctbl.active_count() == 4096
+    assert rt.conflicts_deferred > 0 and ticks >= 3
+    calls = keys.size + 4096
+    state = {"player": host_state(tbl), "counter": host_state(ctbl)}
+    if not quiet:
+        mode = "off-loop worker" if offloop else "inline"
+        dup = int((np.bincount(keys) > 1).sum())
+        print(f"Phase E ({mode}): {calls} calls ({keys.size} heartbeats in "
+              f"64 groups of {group}, {dup} keys called twice or more, "
+              f"4096 hashed Counter calls) in {ticks} ticks: "
+              f"{calls / wall:.0f} calls/sec, {wall / ticks * 1e3:.3f} "
+              f"ms/tick, {wall:.3f} s on {card}")
+        print(f"  Phase E ({mode}) stages: {clock.line(wall)}")
+        rt.stats = None
+        if not offloop:
+            # device busy per tick from a profiled rerun of the same
+            # schedule, all 64 groups and the hashed calls (its wall is the
+            # profiler's; the wall per tick is the timed run's, above)
+            t_before = rt.ticks
+            kernels = device_breakdown(lambda: asyncio.run(
+                drive_heartbeats(rt, Player, Counter, group, keys, pos)),
+                iters=1)
+            pt = (rt.ticks - t_before) // 2  # one warm-up run, one traced
+            report_breakdown(f"Phase E tick (inline; profiled rerun, {pt} "
+                             f"ticks)",
+                             {k: v / pt for k, v in kernels.items()},
+                             wall / ticks * 1e3)
+    return state, ticks
+
+
+async def drive_fanout(rt, Fan, n_subs, events, chunk, rng):
+    """Phase G's traffic and checks; returns (reduced values, deliveries,
+    per-key calls, broadcast wall seconds, chunks)."""
+    from orleans_tpu_torch.dispatch import VectorRuntime, reshard_dense
+    from orleans_tpu_torch.parallel import make_mesh
+    busy = rng.choice(n_subs, 1024, replace=False)
+    futs = [rt.call(Fan, int(k), "on_next", v=np.float32(-1.0))
+            for k in busy]
+    subs = np.arange(n_subs)
+    t0 = time.perf_counter()
+    delivered = 0
+    for e in range(events):
+        delivered += await rt.broadcast_actors(
+            Fan, "on_next", subs, {"v": np.float32(e)}, chunk=chunk)
+    if rt.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    await asyncio.gather(*futs)
+    assert delivered == events * n_subs, delivered
+    total = delivered + busy.size  # broadcast edges and per-key calls
+    red = {c: await rt.reduce_actors(Fan, "events", combine=c)
+           for c in ("sum", "max", "min", "mean")}
+    assert int(red["sum"]) == total, (int(red["sum"]), total)
+    assert int(red["max"]) == events + 1 and int(red["min"]) == events
+    assert float(red["mean"]) == total / n_subs
+    assert await rt.map_actors(Fan, "on_next", {"v": np.float32(9.0)}) \
+        == n_subs
+    total += n_subs
+    ready = await rt.join_when(Fan, subs, k=n_subs, method="ready",
+                               timeout=600)
+    assert ready == n_subs
+    red["after_map"] = await rt.reduce_actors(Fan, "events")
+    assert int(red["after_map"]) == total
+    tbl = rt.table(Fan)
+    for shards in (7, SHARDS_B):
+        rt2 = VectorRuntime(make_mesh(shards, rt.device),
+                            capacity_per_shard=-(-n_subs // shards))
+        rt2.tables[Fan] = reshard_dense(tbl, rt2)
+        tbl = rt2.table(Fan)
+        got = await rt2.reduce_actors(Fan, "events")
+        assert int(got) == total, (shards, int(got), total)
+        red[f"resharded_{shards}"] = got
+    return red, tbl, delivered, busy.size, wall
+
+
+def chunk_legs(rt, Fan, chunk: int, iters: int = 20):
+    """Wall ms of one broadcast chunk's two device legs at Phase G's
+    shapes, synchronised: ``route`` ([8, chunk/8] lanes through K2 and
+    the exchange) and one ``apply_received`` dedup round with the two
+    host syncs ``_broadcast_chunk`` makes per round."""
+    n = SHARDS_B
+    L = chunk // n
+    dev = rt.device
+    keys = torch.arange(n * L, device=dev).reshape(n, L)
+    payload = {"v": torch.zeros((n, L), device=dev)}
+    valid = torch.ones((n, L), dtype=torch.bool, device=dev)
+    recv = rt.route(Fan, keys, payload, valid, capacity=L)
+
+    def route():
+        rt.route(Fan, keys, payload, valid, capacity=L)
+
+    def apply():
+        _, applied = rt.apply_received(Fan, "on_next", recv[0], recv[2],
+                                       recv[1])
+        left = recv[2] & ~applied
+        int(applied.sum())
+        int(left.sum())
+
+    out = []
+    for fn in (route, apply):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / iters * 1e3)
+    return out
+
+
+def phase_g(dev, card, n_subs=N_G, events=3, chunk=16384, quiet=False):
+    """Bulk collectives at the celebrity fan-out width: 1M subscribers
+    over 8 logical shards, 3 events broadcast to all with 1,024 per-key
+    calls pending (deferred by _busy_split), then reduce (sum, max, min,
+    mean), map over every subscriber, join_when at k = all, and the
+    reshard 8 → 7 → 8 with the sum unchanged. Every chunk is routed
+    through K2."""
+    from orleans_tpu_torch.dispatch import VectorRuntime
+    from orleans_tpu_torch.ops import KERNELS
+    from orleans_tpu_torch.parallel import make_mesh
+    Fan = fan_class()
+    rt = VectorRuntime(make_mesh(SHARDS_B, dev),
+                       capacity_per_shard=-(-n_subs // SHARDS_B))
+    rt.table(Fan).ensure_dense(n_subs)
+    red, tbl, delivered, n_busy, wall = asyncio.run(drive_fanout(
+        rt, Fan, n_subs, events, chunk, np.random.default_rng(4)))
+    launched = {k.name: k.launches for k in KERNELS}
+    n_chunks = events * -(-n_subs // chunk)
+    if not quiet:
+        print(f"Phase G: {n_subs} subscribers x {SHARDS_B} shards, {events} "
+              f"events in {n_chunks} chunks of {chunk} ({n_busy} per-key "
+              f"calls deferred): {delivered / wall:.0f} deliveries/sec, "
+              f"{wall / n_chunks * 1e3:.3f} ms/chunk, {wall:.3f} s; "
+              f"sum {int(red['sum'])}, after map {int(red['after_map'])}, "
+              f"unchanged through reshard 8->7->8 on {card}")
+        subs = np.arange(n_subs)
+        kernels = device_breakdown(lambda: asyncio.run(
+            rt.broadcast_actors(Fan, "on_next", subs,
+                                {"v": np.float32(0.5)}, chunk=chunk)),
+            iters=1)
+        per = -(-n_subs // chunk)
+        report_breakdown("Phase G chunk",
+                         {k: v / per for k, v in kernels.items()},
+                         wall / n_chunks * 1e3)
+        route_ms, apply_ms = chunk_legs(rt, Fan, chunk)
+        print(f"  Phase G chunk legs: route {route_ms:.3f} ms, apply "
+              f"(one dedup round with its two syncs) {apply_ms:.3f} ms, "
+              f"the rest (busy split, activation, host pads and uploads) "
+              f"{wall / n_chunks * 1e3 - route_ms - apply_ms:.3f} ms of "
+              f"{wall / n_chunks * 1e3:.3f} ms")
+    return red, host_state(tbl), launched
+
+
+def phase_f(dev):
+    """Phases E and G at 20,000 actors on the card and on the CPU: every
+    state row and every reduced value equal."""
+    cpu = torch.device("cpu")
+    e_cuda, t_cuda = phase_e(dev, "", n_players=20_000, quiet=True)
+    e_cpu, t_cpu = phase_e(cpu, "", n_players=20_000, quiet=True)
+    assert t_cuda == t_cpu, (t_cuda, t_cpu)
+    for k in e_cuda:
+        same_state(e_cuda[k], e_cpu[k], f"Phase F E {k}")
+    r_cuda, g_cuda, _ = phase_g(dev, "", n_subs=20_000, quiet=True)
+    r_cpu, g_cpu, _ = phase_g(cpu, "", n_subs=20_000, quiet=True)
+    assert r_cuda.keys() == r_cpu.keys()
+    for k in r_cuda:
+        a, b = np.asarray(r_cuda[k]), np.asarray(r_cpu[k])
+        assert a.dtype == b.dtype and np.array_equal(a, b), (k, a, b)
+    same_state(g_cuda, g_cpu, "Phase F G")
+    print(f"Phase F: E ({t_cuda} ticks) and G at 20,000 actors x "
+          f"{SHARDS_B} shards, card == CPU, exactly")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -680,6 +1051,29 @@ def main() -> int:
     for name, count in launches.items():
         assert count > 0, f"kernel {name} was not launched on the main path"
     phase_d(dev)
+
+    # Phase E: the per-key path, inline then on the off-loop worker, from
+    # the same schedule; it launches neither K1 nor K2 (its tick is the
+    # gather / handler / scatter of the engine)
+    for k in KERNELS:
+        k.launches = 0
+    e_inline, _ = phase_e(dev, card)
+    e_offloop, _ = phase_e(dev, card, offloop=True)
+    for name in e_inline:
+        same_state(e_inline[name], e_offloop[name], f"Phase E {name}")
+    print("Phase E: inline and off-loop runs left identical state")
+    launches_e = {k.name: k.launches for k in KERNELS}
+    del e_inline, e_offloop
+    phase_f(dev)
+    # Phase G: the bulk collectives; every broadcast chunk ranks through K2
+    for k in KERNELS:
+        k.launches = 0
+    _, _, launches_g = phase_g(dev, card)
+    assert launches_g[RANK_BY_DEST.name] > 0, "K2 not launched in Phase G"
+    print(f"launches on the main path: A-C {launches}, E {launches_e}, "
+          f"G {launches_g}")
+    launches = {name: launches[name] + launches_e[name] + launches_g[name]
+                for name in launches}
 
     sources = {SEGMENT_SUM.name: ("orleans_tpu/ops/segment_reduce.py:87",
                                   "orleans_tpu_torch/ops/csrc/segment_sum.cu"),

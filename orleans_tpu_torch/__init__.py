@@ -11,4 +11,5 @@ This package imports torch and numpy only — never jax, never
 ``orleans_tpu``.
 """
 
-__all__ = ["dispatch", "interop", "ops", "parallel"]
+__all__ = ["config", "core", "dispatch", "interop", "observability", "ops",
+           "parallel"]

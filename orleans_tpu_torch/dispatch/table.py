@@ -19,6 +19,8 @@ the shard comes from a host-side free list. Two key regimes:
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -34,6 +36,21 @@ _LOC_STRIDE = 1 << 20
 __all__ = ["ShardedActorTable"]
 
 
+def _accumulate_hits(hits: torch.Tensor, slots_b, valid_b,
+                     scale: int) -> None:
+    """Add ``scale`` per valid lane into the ``[n, C+1]`` int32 counter at
+    (shard, slot), in place. Padding lanes aim at the sink row with
+    weight 0, so the fold needs no host sync and no data-dependent
+    shape."""
+    dev = hits.device
+    slots = torch.as_tensor(slots_b).to(device=dev, dtype=torch.int64)
+    valid = torch.as_tensor(valid_b).to(dev)
+    n, B = slots.shape
+    shard = torch.arange(n, device=dev)[:, None].expand(n, B)
+    hits.index_put_((shard, slots), valid.to(torch.int32) * int(scale),
+                    accumulate=True)
+
+
 class ShardedActorTable:
     def __init__(self, grain_class: type[VectorGrain], mesh: Mesh,
                  capacity_per_shard: int = 1024):
@@ -45,8 +62,16 @@ class ShardedActorTable:
         # padded buckets (also po2) slice the pool contiguously
         self.capacity = 1 << (int(capacity_per_shard) - 1).bit_length()
         self.methods = vector_methods(grain_class)
+        # tick-serialization fence: grow, read_row, snapshot/restore and
+        # the counters take it, so they never interleave with a batch of
+        # the engine's off-loop worker; VectorRuntime.register replaces it
+        # with the engine's own lock
+        self.fence = threading.RLock()
         self.key_to_slot: dict[int, tuple[int, int]] = {}
         self.device_dir = DeviceDirectory64(device=self.device)
+        # key_hash -> the GrainId uniform hash that routes it, where they
+        # differ (small int keys): what an ownership sweep reads
+        self.route_hash: dict[int, int] = {}
         self.free: list[list[int]] = [
             list(range(self.capacity - 1, -1, -1))
             for _ in range(self.n_shards)]
@@ -56,15 +81,95 @@ class ShardedActorTable:
         self.state: dict[str, torch.Tensor] = {
             name: self._zeros(name, self.capacity)
             for name in grain_class.STATE}
+        # per-slot invocation counters and per-slot tick cost in
+        # microseconds, [n_shards, C+1] int32 with the sink row absorbing
+        # padding lanes; None until enabled
+        self.hits: torch.Tensor | None = None
+        self.cost: torch.Tensor | None = None
 
     def _zeros(self, name: str, capacity: int) -> torch.Tensor:
         dtype, shape = self.grain_class.STATE[name]
         return torch.zeros((self.n_shards, capacity + 1, *shape),
                            dtype=torch_dtype(dtype), device=self.device)
 
+    def _counter(self, capacity: int) -> torch.Tensor:
+        return torch.zeros((self.n_shards, capacity + 1), dtype=torch.int32,
+                           device=self.device)
+
     @property
     def sink_slot(self) -> int:
         return self.capacity
+
+    def active_count(self) -> int:
+        """Live activations: hashed slots plus dense keys touched."""
+        return len(self.key_to_slot) + int(self.dense_active.sum())
+
+    # -- hot-spot telemetry (per-slot hit counters) -----------------------
+    def enable_hit_tracking(self) -> None:
+        with self.fence:
+            if self.hits is None:
+                self.hits = self._counter(self.capacity)
+
+    def record_hits(self, slots_b, valid_b, scale: int = 1) -> None:
+        """Fold one tick's [n_shards, B] batch (numpy or tensors) into the
+        hit counters; ``scale`` messages per lane (K for K rounds)."""
+        with self.fence:
+            if self.hits is not None:
+                _accumulate_hits(self.hits, slots_b, valid_b, scale)
+
+    def shard_hits(self) -> np.ndarray:
+        """[n_shards] invocation totals since the last reset, sink row
+        excluded."""
+        with self.fence:
+            if self.hits is None:
+                return np.zeros(self.n_shards, dtype=np.int64)
+            return self.hits[:, :self.capacity].sum(dim=1).to(
+                torch.int32).cpu().numpy().astype(np.int64)
+
+    def slot_hits(self) -> np.ndarray:
+        with self.fence:
+            if self.hits is None:
+                return np.zeros((self.n_shards, self.capacity + 1), np.int32)
+            return self.hits.cpu().numpy().copy()
+
+    def reset_hits(self) -> None:
+        with self.fence:
+            if self.hits is not None:
+                self.hits = self._counter(self.capacity)
+
+    # -- cost attribution (per-slot tick cost, microseconds) --------------
+    def enable_cost_tracking(self) -> None:
+        with self.fence:
+            if self.cost is None:
+                self.cost = self._counter(self.capacity)
+
+    def record_cost(self, slots_b, valid_b, cost_us: int) -> None:
+        """Charge every valid lane of one tick ``cost_us`` microseconds."""
+        with self.fence:
+            if self.cost is not None and cost_us > 0:
+                _accumulate_hits(self.cost, slots_b, valid_b, cost_us)
+
+    def slot_cost(self) -> np.ndarray:
+        with self.fence:
+            if self.cost is None:
+                return np.zeros((self.n_shards, self.capacity + 1), np.int32)
+            return self.cost.cpu().numpy().copy()
+
+    def cost_seconds(self) -> float:
+        """Charged row-seconds since the last reset, summed on the device
+        with the sink column masked out."""
+        with self.fence:
+            if self.cost is None:
+                return 0.0
+            from ..ops.segment_reduce import masked_reduce
+            valid = (torch.arange(self.capacity + 1, device=self.device)
+                     < self.capacity).expand(self.n_shards, -1)
+            return float(masked_reduce(self.cost, valid, "sum")) * 1e-6
+
+    def reset_cost(self) -> None:
+        with self.fence:
+            if self.cost is not None:
+                self.cost = self._counter(self.capacity)
 
     # -- dense regime -----------------------------------------------------
     def ensure_dense(self, n: int) -> None:
@@ -145,12 +250,37 @@ class ShardedActorTable:
             return False
         self.free[loc[0]].append(loc[1])
         self.device_dir.remove(key_hash)
+        self.route_hash.pop(key_hash, None)
         return True
+
+    def note_route(self, key_hash: int, uniform_hash: int) -> None:
+        """Record the routing hash of a hashed key (every entry point that
+        knows the GrainId calls this)."""
+        if key_hash != uniform_hash:
+            self.route_hash[key_hash] = uniform_hash
+
+    def note_route_many(self, pairs) -> None:
+        """Batched :meth:`note_route` over (key_hash, uniform_hash) pairs
+        already filtered to key_hash != uniform_hash."""
+        self.route_hash.update(pairs)
+
+    def unowned_keys(self, still_owned) -> list[int]:
+        """Hashed rows whose ring owner is no longer this silo: keys whose
+        routing hash (the key hash where none was noted) fails
+        ``still_owned``. Dense rows are not swept."""
+        return [kh for kh in self.key_to_slot
+                if not still_owned(self.route_hash.get(kh, kh))]
 
     # -- growth -----------------------------------------------------------
     def grow(self, new_capacity: int) -> None:
         """Grow every shard's slot pool to the next power of two at least
-        ``new_capacity`` and twice the old one; rows keep their slots."""
+        ``new_capacity`` and twice the old one; rows keep their slots.
+        Under the fence: growth swaps ``state`` and moves the sink, which
+        a worker batch in flight must not see half done."""
+        with self.fence:
+            self._grow(new_capacity)
+
+    def _grow(self, new_capacity: int) -> None:
         new_capacity = max(new_capacity, self.capacity * 2)
         new_capacity = 1 << (new_capacity - 1).bit_length()
         old = self.capacity
@@ -158,6 +288,12 @@ class ShardedActorTable:
             grown = self._zeros(name, new_capacity)
             grown[:, :old] = arr[:, :old]  # the old sink row is junk
             self.state[name] = grown
+        for name in ("hits", "cost"):
+            old_ctr = getattr(self, name)
+            if old_ctr is not None:
+                grown = self._counter(new_capacity)
+                grown[:, :old] = old_ctr[:, :old]
+                setattr(self, name, grown)
         for s in range(self.n_shards):
             self.free[s] = list(range(new_capacity - 1, old - 1, -1)) \
                 + self.free[s]
@@ -165,6 +301,10 @@ class ShardedActorTable:
 
     # -- host access (tests, persistence) ---------------------------------
     def read_row(self, key_hash: int) -> dict[str, np.ndarray] | None:
+        with self.fence:
+            return self._read_row(key_hash)
+
+    def _read_row(self, key_hash: int) -> dict[str, np.ndarray] | None:
         loc = self.key_to_slot.get(key_hash)
         if loc is None:
             if 0 <= key_hash < self.dense_n:
@@ -173,17 +313,23 @@ class ShardedActorTable:
             else:
                 return None
         shard, slot = loc
-        return {k: v[shard, slot].cpu().numpy()
+        return {k: v[shard, slot].cpu().numpy().copy()
                 for k, v in self.state.items()}
 
     def snapshot(self) -> dict[str, np.ndarray]:
-        """Full host copy of the state (field → numpy [n, C+1, ...])."""
-        return {k: v.cpu().numpy() for k, v in self.state.items()}
+        """Full host copy of the state (field → numpy [n, C+1, ...]),
+        owning its memory (on the CPU the pool is the same buffer)."""
+        with self.fence:
+            return {k: v.cpu().numpy().copy() for k, v in self.state.items()}
 
     def restore(self, snap: dict) -> None:
         """Replace the state with ``snap``: numpy arrays (a snapshot of
         either package's table) or tensors (``interop.state_from_numpy``).
         Each field is cast to its STATE dtype on this table's device."""
+        with self.fence:
+            self._restore(snap)
+
+    def _restore(self, snap: dict) -> None:
         tensors = state_from_numpy(
             {k: v for k, v in snap.items() if isinstance(v, np.ndarray)},
             self.device)

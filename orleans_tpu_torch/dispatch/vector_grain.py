@@ -50,11 +50,11 @@ class ActorMethod:
         """Schema from host arrays or tensors with ``lead`` leading batch
         axes ([M, ...] for one tick, [K, M, ...] for K rounds)."""
         if self.args_schema is None:
-            self.args_schema = {
-                k: (torch_dtype(v.dtype if isinstance(v, torch.Tensor)
-                                else np.asarray(v).dtype),
-                    tuple(v.shape[lead:]))
-                for k, v in args.items()}
+            def spec(v):
+                if not isinstance(v, torch.Tensor):
+                    v = np.asarray(v)
+                return torch_dtype(v.dtype), tuple(v.shape[lead:])
+            self.args_schema = {k: spec(v) for k, v in args.items()}
         return self.args_schema
 
 

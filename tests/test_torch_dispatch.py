@@ -354,3 +354,46 @@ def test_duplicate_keys_refused():
         trt.make_dense_plan(TPlayer, np.array([1, 1]))
     with pytest.raises(TypeError):
         trt.call_batch(TPlayer, "heartbeat", np.arange(2), {"x": np.zeros(2)})
+
+
+@pytest.mark.parametrize("mask", ["numpy", "tensor"])
+def test_call_batch_device_counts_host_and_device_masks(mask):
+    """call_batch_device takes numpy or tensor operands, as the reference
+    does: a numpy valid mask is counted into messages_processed, a mask on
+    the device adds its lanes to exchange_lanes (counting it would sync).
+    Results and state equal the reference's."""
+    n_shards, B = 2, 8
+    jrt, trt = _pair(n_shards, 16, 32)
+    rng = np.random.default_rng(11)
+    slots = np.tile(np.arange(B, dtype=np.int32), (n_shards, 1))
+    valid = rng.random((n_shards, B)) < 0.6
+    slots[~valid] = 16  # idle lanes aim at the sink row
+    khash = (np.arange(n_shards)[:, None] * 16 + slots).astype(np.int32)
+    fresh = valid.copy()
+    pos = _pos(rng, n_shards, B)
+
+    def ops(as_tensor):
+        conv = torch.from_numpy if as_tensor else jnp.asarray
+        return [conv(a) for a in (slots, khash, fresh, valid)], \
+            {"pos": conv(pos)}
+
+    jops, jargs = (slots, khash, fresh, valid), {"pos": pos}
+    if mask == "tensor":
+        jops, jargs = ops(False)
+    jres = jrt.call_batch_device(JPlayer, "heartbeat", *jops, jargs)
+    tops, targs = (slots, khash, fresh, valid), {"pos": pos}
+    if mask == "tensor":
+        tops, targs = ops(True)
+    tres = trt.call_batch_device(TPlayer, "heartbeat", *tops, targs)
+    for k in jres:
+        np.testing.assert_array_equal(tres[k].numpy()[valid],
+                                      np.asarray(jres[k])[valid])
+    _same_state(jrt.table(JPlayer), trt.table(TPlayer))
+    assert trt.messages_processed == jrt.messages_processed
+    assert trt.exchange_lanes == jrt.exchange_lanes
+    if mask == "numpy":
+        assert trt.messages_processed == int(valid.sum())
+        assert trt.exchange_lanes == 0
+    else:
+        assert trt.messages_processed == 0
+        assert trt.exchange_lanes == n_shards * B

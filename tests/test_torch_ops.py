@@ -390,13 +390,17 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'orleans_tpu' or m.startswith('orleans_tpu.')]\n"
         "assert not bad, bad\n"
+        "for m in ('core.ids', 'config', 'observability', "
+        "'dispatch.reshard', 'dispatch.replicated', 'dispatch.engine', "
+        "'interop'):\n"
+        "    assert 'orleans_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('orleans_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parent.parent)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 14
+    assert int(out.stdout.strip()) >= 20
 
 
 def test_make_mesh_default_is_cuda_or_raises():
