@@ -43,25 +43,41 @@ the script exits non-zero without its result line):
    3 events through ``broadcast_actors`` (every chunk routed through K2)
    while 1,024 per-key calls are pending, then ``reduce_actors`` (the
    sum must equal the deliveries), ``map_actors``, ``join_when`` and a
-   reshard 8 → 7 → 8 that keeps the sum.
+   reshard 8 → 7 → 8 that keeps the sum;
+10. Phase H: Presence through a hosted silo — ``samples/presence_torch.py``
+   at Phase E's population (1,048,576 PlayerVectorGrains over 8 shards,
+   write-behind ``MemoryStorage`` flushed every 0.5 s, scheduled
+   checkpoints, the off-loop tick): bulk waves, 65,536 heartbeats through
+   ``client.call_batch``, 4,096 single calls and 1,024 ``whereis``, a
+   ``client.broadcast_actors`` to every player (K2 on every chunk) with
+   ``reduce_actors`` and ``join_when``, 64 ``GameGrain.summary`` fan-ins
+   (K1), then ``silo.stop()`` (final flush and checkpoint), a silo that
+   restores the checkpoint bit for bit and a storage-only silo that
+   reloads 4,096 players and calls them again; every answer is held
+   against a numpy model of the schedule (``drive_presence``);
+11. Phase I: Phase H's drive at 20,000 players on the card and on the
+   CPU, compared exactly.
 
 The launch counts are set to 0 just before Phase A and read just after
-Phase C, and again around Phase E and around Phase G: a kernel of a path
-that was not launched fails the run (A-C launch both kernels, G launches
-K2; E's tick uses neither). The last two lines are the ``kernels`` JSON
-(launches summed over those runs, errors and times in ms) and
-``{"ok": true, "device": ...}``.
+Phase C, and again around Phase E, Phase G and Phase H: a kernel of a
+path that was not launched fails the run (A-C launch both kernels, G
+launches K2, H both; E's tick uses neither). The last two lines are the
+``kernels`` JSON (launches summed over those runs, errors and times in
+ms) and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
 import asyncio
+import functools
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -75,6 +91,10 @@ K = 8
 SHARDS_B = 8
 N_E = 1 << 20  # Phase E: bench.py's population, rounded to 2^20
 N_G = 1 << 20  # Phase G: subscribers of the celebrity fan-out
+N_H = 1 << 20  # Phase H: hosted Presence players, Phase E's population
+N_I = 20_000   # Phase I: the card against the CPU
+HOSTED_TIMEOUT = 600.0  # Phase H-I response timeout, seconds
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def card_line() -> str:
@@ -104,7 +124,6 @@ def device_profile(fn, iters: int = 20) -> dict[str, tuple[float, float]]:
     """(device ms, launches) per call of each CUDA kernel that ``fn``
     launches, by kernel name, from torch.profiler's trace of ``iters``
     calls."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -113,6 +132,14 @@ def device_profile(fn, iters: int = 20) -> dict[str, tuple[float, float]]:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    return {k: (ms / iters, n / iters)
+            for k, (ms, n) in profiled_kernels(prof).items()}
+
+
+def profiled_kernels(prof) -> dict[str, tuple[float, float]]:
+    """(device ms, launches) of each CUDA kernel in a finished
+    torch.profiler run, by kernel name."""
+    from torch.autograd import DeviceType
     out = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -120,8 +147,8 @@ def device_profile(fn, iters: int = 20) -> dict[str, tuple[float, float]]:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        ms, n = out.get(e.key, (0.0, 0.0))
-        out[e.key] = (ms + us / 1e3 / iters, n + e.count / iters)
+        ms, n = out.get(e.key, (0.0, 0))
+        out[e.key] = (ms + us / 1e3, n + e.count)
     return out
 
 
@@ -394,7 +421,28 @@ def kernel_checks(dev):
         g = g_chunk_dest(dev, targets, per)
         rank(g, SHARDS_B + 1, f"{label} route")
         check_repeat(lambda: rank_by_dest(g, SHARDS_B + 1), f"K2 {label}")
+    # Phase H: a broadcast chunk of 16,384 consecutive players (no busy
+    # keys: every chunk is one or two owning shards) and the summary's
+    # fan-in of [N_H, 2] (score, 1) rows into 64 games, inactive rows on -1
+    per = -(-N_H // SHARDS_B)
+    g = g_chunk_dest(dev, np.arange(3 * 16384, 4 * 16384), per)
+    rank(g, SHARDS_B + 1, "Phase H broadcast chunk route")
+    hv, hid = h_summary_inputs(dev, gen)
+    seg(hv, hid, 64, "Phase H summary fan-in")
+    check_repeat(lambda: segment_sum(hv, hid, 64), "K1 Phase H summary")
     return errs, (dest, values, ids)
+
+
+def h_summary_inputs(dev, gen):
+    """K1's operands as ``presence_torch.game_totals`` builds them for
+    Phase H: per player (score, 1) as int32 [N_H, 2], ids the player's
+    game (key % 64), with a few inactive players on -1."""
+    keys = torch.arange(N_H, device=dev, dtype=torch.int32)
+    ids = torch.where(torch.rand(N_H, generator=gen, device=dev) < 0.001,
+                      torch.full_like(keys, -1), keys % 64)
+    score = torch.randint(5, 40, (N_H,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    return torch.stack([score, torch.ones_like(score)], dim=1), ids
 
 
 def g_first_event_chunks(n_subs: int, chunk: int):
@@ -1013,6 +1061,195 @@ def phase_f(dev):
           f"{SHARDS_B} shards, card == CPU, exactly")
 
 
+class DeviceWindow:
+    """A context manager that profiles the CUDA kernels run inside it (the
+    off-loop worker's too) and its wall time: ``busy_ms`` and
+    ``wall_ms`` after exit."""
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        self._prof = profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.wall_ms = (time.perf_counter() - self._t0) * 1e3
+        self._prof.__exit__(*exc)
+        self.busy_ms = sum(ms for ms, _ in
+                           profiled_kernels(self._prof).values())
+        return False
+
+
+def presence_sample():
+    sys.path.insert(0, os.path.join(ROOT, "samples"))
+    import presence_torch
+    return presence_torch
+
+
+def drive_hosted(dev, n_players, profile=None):
+    """``presence_torch.drive_presence`` over silos on ``dev`` (8 shards)
+    with its default schedule; returns (results, stats). The silo's and
+    the client's response timeout is HOSTED_TIMEOUT: a write-behind flush
+    of every row holds the loop for about 42 s at Phase H's size."""
+    pt = presence_sample()
+    from orleans_tpu_torch.parallel import make_mesh
+    from orleans_tpu_torch.runtime import ClusterClient
+    from orleans_tpu_torch.storage import MemoryStorage
+    mesh = make_mesh(SHARDS_B, dev)
+    sched = pt.presence_schedule(n_players, seed=5)
+
+    def build(storage, checkpoint_dir):
+        return pt.build_silo(n_players, mesh, storage=storage,
+                             checkpoint_dir=checkpoint_dir,
+                             response_timeout=HOSTED_TIMEOUT)
+
+    scratch = os.path.join(ROOT, "orleans_tpu_torch", "_build")
+    os.makedirs(scratch, exist_ok=True)
+    ckdir = tempfile.mkdtemp(prefix="phase_h_ckpt_", dir=scratch)
+    try:
+        return asyncio.run(pt.drive_presence(
+            build, functools.partial(ClusterClient,
+                                     response_timeout=HOSTED_TIMEOUT),
+            MemoryStorage(), pt.PlayerVectorGrain, pt.GameGrain, sched,
+            ckdir, profile=profile))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def phase_h(dev, card):
+    """Presence through a hosted silo at Phase E's population; prints the
+    hosted path's rates (each step's wall, and the part of it that
+    write-behind flushes held the loop) and the device idle share of one
+    profiled ``client.call_batch`` batch. Returns the kernels' launch
+    counts of the drive, then times the summary's device work at its
+    shapes outside the silo (those launches are not the drive's)."""
+    from orleans_tpu_torch.dispatch import VectorRuntime
+    from orleans_tpu_torch.ops import KERNELS, segment_sum
+    from orleans_tpu_torch.parallel import make_mesh
+    windows = []
+
+    def profile():
+        windows.append(DeviceWindow())
+        return windows[-1]
+
+    n_players = N_H
+    t0 = time.perf_counter()
+    res, st = drive_hosted(dev, n_players, profile)
+    wall = time.perf_counter() - t0
+    launched = {k.name: k.launches for k in KERNELS}
+
+    def step(name, count, what):
+        secs, held = st[f"{name}_s"], st[f"{name}_flush_s"]
+        return (f"{count / secs:.0f} {what}/sec, {secs:.3f} s, of which "
+                f"{held:.3f} s with the loop held by write-behind flushes "
+                f"({count / max(secs - held, 1e-9):.0f} {what}/sec outside "
+                f"them)")
+
+    calls = 16 * 4096
+    print(f"Phase H: Presence hosted in a silo, {n_players} players x "
+          f"{SHARDS_B} shards, off-loop tick, write-behind every 0.5 s, "
+          f"on {card}; {wall:.3f} s in all")
+    print(f"  waves: 5 x {n_players} heartbeats through silo.vector"
+          f".call_batch: {step('waves', 5 * n_players, 'msgs')} on {card}")
+    print(f"  client.call_batch: {calls} heartbeats in 16 batches of 4096 "
+          f"over {st['batch_ticks']} ticks "
+          f"({st['batch_s'] / st['batch_ticks'] * 1e3:.3f} ms/tick), "
+          f"{st['batch_conflicts']} conflicts deferred: "
+          f"{step('batch', calls, 'calls')} on {card}")
+    clear = st["batch_clear_s"]
+    if clear:
+        print(f"  client.call_batch, the {len(clear)} batches no flush "
+              f"overlapped: median {np.median(clear) * 1e3:.3f} ms a batch "
+              f"({4096 / np.median(clear):.0f} calls/sec), min "
+              f"{min(clear) * 1e3:.3f}, max {max(clear) * 1e3:.3f} ms on "
+              f"{card}")
+    w = windows[0]
+    print(f"  client.call_batch, last batch profiled: device busy "
+          f"{w.busy_ms:.4f} ms of {w.wall_ms:.3f} ms wall (idle share "
+          f"{max(0.0, 1 - w.busy_ms / w.wall_ms):.4f}) on {card}")
+    print(f"  single calls: 4096 heartbeats + 1024 whereis through "
+          f"get_grain over {st['single_ticks']} ticks "
+          f"({st['single_s'] / max(1, st['single_ticks']) * 1e3:.3f} "
+          f"ms/tick), {st['single_conflicts']} conflicts deferred: "
+          f"{step('single', 4096 + 1024, 'calls')} on {card}")
+    chunks = -(-n_players // 16384)
+    print(f"  client.broadcast_actors: {res['delivered']} deliveries in "
+          f"{chunks} chunks ({st['broadcast_s'] / chunks * 1e3:.3f} "
+          f"ms/chunk): {step('broadcast', res['delivered'], 'deliveries')}"
+          f"; reduce_actors sum {res['score_sum']}, join_when "
+          f"{res['joined']} on {card}")
+    print(f"  GameGrain.summary: 64 in {st['summary_s']:.3f} s "
+          f"({st['summary_s'] / 64 * 1e3:.3f} ms/summary), of which "
+          f"{st['summary_flush_s']:.3f} s with the loop held by "
+          f"write-behind flushes on {card}")
+    clear = st["summary_clear_s"]
+    if clear:
+        print(f"  GameGrain.summary, the {len(clear)} calls no flush "
+              f"overlapped: median {np.median(clear) * 1e3:.3f} ms, min "
+              f"{min(clear) * 1e3:.3f}, max {max(clear) * 1e3:.3f} ms on "
+              f"{card}")
+    for kind in ("periodic", "final"):
+        rows, secs = st[f"{kind}_flush_rows"], st[f"{kind}_flush_s"]
+        print(f"  write-behind, {kind} flushes: {rows} rows in {secs:.3f} s"
+              f" ({rows / secs if secs else 0:.0f} rows/sec) on {card}")
+    print(f"  silo.stop {st['stop_s']:.3f} s; checkpoint: "
+          f"{st['checkpoint_bytes']} bytes, save {st['save_s']:.3f} s, "
+          f"restore {st['restore_s']:.3f} s (equal to the pre-stop table "
+          f"bit for bit); a storage-only silo reloaded "
+          f"{res['loaded'].size} players and continued their scores, on "
+          f"{card}")
+    # the summary's device work at its shapes: a table of n_players
+    # activated by one wave, its operands as GameGrain builds them
+    pt = presence_sample()
+    rt = VectorRuntime(make_mesh(SHARDS_B, dev),
+                       capacity_per_shard=-(-n_players // SHARDS_B))
+    rt.table(pt.PlayerVectorGrain).ensure_dense(n_players)
+    keys = np.arange(n_players)
+    rt.call_batch(pt.PlayerVectorGrain, "heartbeat", keys, {
+        "pos": np.zeros((n_players, 2), np.float16),
+        "delta": np.ones(n_players, np.int32)})
+    tbl = rt.table(pt.PlayerVectorGrain)
+    values, ids = pt.game_operands(tbl)
+    k1_ms = time_ms(lambda: segment_sum(values, ids, pt.N_GAMES))
+    totals_ms = time_ms(lambda: pt.game_totals(tbl))
+    kernels = device_profile(lambda: pt.game_totals(tbl), iters=5)
+    k1_dev = sum(t for k, (t, _) in kernels.items()
+                 if "segment_sum_kernel" in k)
+    busy = sum(t for t, _ in kernels.values())
+    print(f"  summary's device work at its shapes ([{n_players}, 2] int32 "
+          f"into {pt.N_GAMES} games): game_totals {totals_ms:.4f} ms, K1 "
+          f"{k1_ms:.4f} ms (CUDA events); profiler: K1 device "
+          f"{k1_dev:.4f} ms, all kernels {busy:.4f} ms a summary on {card}")
+    return launched
+
+
+def same_results(a, b, label: str) -> None:
+    """Equal nested results (dicts, arrays, ints), dtypes included."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), label
+        for k in a:
+            same_results(a[k], b[k], f"{label}.{k}")
+        return
+    x, y = np.asarray(a), np.asarray(b)
+    assert x.dtype == y.dtype and x.shape == y.shape, (label, x.dtype,
+                                                       y.dtype)
+    assert np.array_equal(x, y), f"{label} differs"
+
+
+def phase_i(dev):
+    """Phase H's drive at 20,000 players on the card and on the CPU: every
+    returned value and the final tables equal."""
+    got_cuda, _ = drive_hosted(dev, N_I)
+    got_cpu, _ = drive_hosted(torch.device("cpu"), N_I)
+    same_results(got_cuda, got_cpu, "Phase I")
+    print(f"Phase I: Phase H's drive at {N_I} players x {SHARDS_B} shards, "
+          f"card == CPU, exactly (every answer and the final table)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -1070,10 +1307,20 @@ def main() -> int:
         k.launches = 0
     _, _, launches_g = phase_g(dev, card)
     assert launches_g[RANK_BY_DEST.name] > 0, "K2 not launched in Phase G"
+    # Phase H: the hosted silo; its broadcast ranks through K2 and its
+    # summaries fan in through K1
+    for k in KERNELS:
+        k.launches = 0
+    t_hi = time.perf_counter()
+    launches_h = phase_h(dev, card)
+    for name, count in launches_h.items():
+        assert count > 0, f"kernel {name} was not launched in Phase H"
+    phase_i(dev)
+    print(f"Phases H and I: {time.perf_counter() - t_hi:.3f} s")
     print(f"launches on the main path: A-C {launches}, E {launches_e}, "
-          f"G {launches_g}")
+          f"G {launches_g}, H {launches_h}")
     launches = {name: launches[name] + launches_e[name] + launches_g[name]
-                for name in launches}
+                + launches_h[name] for name in launches}
 
     sources = {SEGMENT_SUM.name: ("orleans_tpu/ops/segment_reduce.py:87",
                                   "orleans_tpu_torch/ops/csrc/segment_sum.cu"),

@@ -1,4 +1,4 @@
-"""orleans_tpu_torch: the device tier of orleans_tpu on PyTorch and CUDA.
+"""orleans_tpu_torch: orleans_tpu on PyTorch and CUDA.
 
 The same virtual-actor dispatch as the JAX package ``orleans_tpu``, with
 actor state in torch tensors on an explicit ``torch.device`` and the two
@@ -7,9 +7,16 @@ hand in CUDA C++ for Hopper (``ops/csrc``). Shards are a leading tensor
 dimension: ``[n_shards, C+1, ...]`` slot pools and ``[n_shards, B, ...]``
 per-tick operands, so an n-shard mesh runs on one card.
 
+The in-proc host tier comes with it (``runtime``: silo, client, catalog,
+dispatcher; ``storage``; ``directory``, ``placement``, ``versions`` and
+the ``streams`` rendezvous a silo needs): ``dispatch.add_vector_grains``
+hosts the engine in a silo, so clients call vector grains like host
+grains.
+
 This package imports torch and numpy only — never jax, never
 ``orleans_tpu``.
 """
 
-__all__ = ["config", "core", "dispatch", "interop", "observability", "ops",
-           "parallel"]
+__all__ = ["config", "core", "directory", "dispatch", "interop",
+           "observability", "ops", "parallel", "placement", "runtime",
+           "storage", "streams", "versions"]

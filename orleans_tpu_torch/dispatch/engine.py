@@ -61,8 +61,8 @@ from torch.func import vmap
 
 from ..core.ids import GrainId, GrainType
 from ..interop import numpy_dtype, torch_dtype
-from ..observability import INGEST_STATS as _INGEST
-from ..observability import LOOP_CATEGORY
+from ..observability.profiling import LOOP_CATEGORY
+from ..observability.stats import INGEST_STATS as _INGEST
 from ..ops.hash_probe import device_lookup64
 from ..ops.route import rank_dense_keys
 from ..ops.segment_reduce import REDUCE_OPS, host_fold, masked_reduce

@@ -1,0 +1,606 @@
+"""Statistics registry (L13).
+
+Re-design of Orleans' src/Orleans.Core/Statistics/ (CounterStatistic,
+IntValueStatistic, HistogramValueStatistic, StatisticNames) — a flat named
+registry of counters/gauges/histograms per silo, cheap enough for hot paths,
+dumpable for the management surface and test assertions.
+
+The port's copy of ``orleans_tpu.observability.stats``.
+"""
+
+from __future__ import annotations
+
+import bisect
+import time
+from collections import deque
+from typing import Callable
+
+__all__ = ["StatsRegistry", "Histogram", "QueueWaitTrend", "CallSiteStats",
+           "DISPATCH_STATS", "REBALANCE_STATS", "INGEST_STATS",
+           "INGEST_STAGES", "EGRESS_STATS", "EGRESS_STAGES", "RING_STATS",
+           "RING_STAGES", "SLO_STATS", "SIZE_BOUNDS", "COUNT_BOUNDS"]
+
+# Hot-lane dispatch counter pair (runtime.hotlane): hits = calls that ran
+# as frame-collapsed inline turns (including the always-interleave direct
+# lane), fallbacks = calls that took the full messaging path. Exposed as
+# gauges (the underlying counters are plain ints on the RuntimeClient — a
+# registry increment per call was measurable in a ping attribution profile); the
+# hit ratio hits/(hits+fallbacks) is the bench/SLO signal.
+DISPATCH_STATS = {
+    "hot_hits": "dispatch.hotlane.hits",
+    "hot_fallbacks": "dispatch.hotlane.fallbacks",
+}
+
+# Canonical rebalancer counter/gauge names (orleans_tpu.rebalance wires
+# its per-round outcomes here; tests and the management surface read them
+# by these names rather than re-deriving strings).
+REBALANCE_STATS = {
+    "rounds": "rebalance.rounds",                  # counter: rounds run
+    "planned": "rebalance.planned",                # counter: moves planned
+    "migrated": "rebalance.activations.migrated",  # counter: host moves done
+    "rows_moved": "rebalance.rows.moved",          # counter: device rows
+    "rolled_back": "rebalance.rolled_back",        # counter: failed+undone
+    "refused": "rebalance.refused",                # counter: dest refused
+    "dropped": "rebalance.dropped",                # counter: over budget
+    "last_moved": "rebalance.last_round.moved",    # gauge: last round total
+    "last_imbalance": "rebalance.last_round.imbalance",  # gauge: hot/mean
+    # gauge: cluster-wide device-shard heat ratio (hottest silo's per-class
+    # hit total / cluster mean), computed from peers' broadcast vector_hits
+    # — the early-warning signal for the cross-silo row-migration follow-on
+    "device_hot_ratio": "rebalance.cluster.device_hot_ratio",
+}
+
+
+# Canonical ingest-pipeline stage metrics (the socket→device attribution
+# substrate — ROADMAP "break the ingest wall"). Stage latency histograms
+# decompose one ingested message's wall time into contiguous segments
+# against a single monotonic stamp carried on the envelope (the
+# Message.received_at slot, wire-excluded, re-stamped at each boundary;
+# every observe/re-stamp happens BEFORE the step that could consume the
+# envelope — routing can synchronously run a turn and recycle the shell):
+#
+#   decode      wire.decode_message (native hotwire or pickle fallback);
+#               stamps received_at at decode end
+#   enqueue     arrival -> leaving the MessageCenter inbound queue
+#               (inline routing makes this ~0; a backlogged QoS category
+#               shows its queue dwell here); re-stamps before routing
+#   queue_wait  hand-off -> work start. Host tier: routing + mailbox +
+#               task scheduling, observed at turn start. Device tier:
+#               engine enqueue -> batch start (tick scheduling +
+#               conflict-deferred ticks), observed per item by the
+#               OWNING silo's engine only — forwarded/rejected hops
+#               never add samples
+#   staging     vector batch pack (pending invocations -> host arrays)
+#   transfer    host arrays -> device operands
+#   tick        kernel dispatch + device execution + host materialize
+#
+# Host-tier turns end at queue_wait (execution is scheduler.turn_length);
+# device-tier requests continue through staging/transfer/tick. Everything
+# is gated on SiloConfig.metrics_enabled — one attr check when off.
+INGEST_STAGES = ("decode", "enqueue", "queue_wait", "staging", "transfer",
+                 "tick")
+
+INGEST_STATS = {
+    "decode": "ingest.decode.seconds",
+    "decode_bytes": "ingest.decode.bytes",       # SIZE_BOUNDS histogram
+    "frames": "ingest.frames",                   # counter: frames decoded
+    "frame_batch": "ingest.frame_batch.size",    # COUNT_BOUNDS histogram
+    "enqueue": "ingest.enqueue.seconds",
+    "queue_wait": "ingest.queue_wait.seconds",
+    "turns": "ingest.turns",                     # counter: host turns timed
+    "staging": "ingest.staging.seconds",
+    "transfer": "ingest.transfer.seconds",
+    "tick": "ingest.tick.seconds",
+    "messages": "ingest.messages",               # counter: device msgs ticked
+}
+
+
+# Canonical egress-pipeline stage metrics — the response-path twin of
+# INGEST_STATS (the batched-egress pipeline: Dispatcher.send_response →
+# EgressBatcher → MessageCenter.send_batch → one encode_message_batch
+# write per destination). Stage latency histograms decompose the
+# response leg the same way the ingest stages decompose the request leg:
+#
+#   build    per-flush grouping/hand-off work in EgressBatcher.flush
+#            (the response-batch resolution cost itself)
+#   dwell    send-queue dwell: a response entering the per-destination
+#            flush accumulator -> leaving it at the batch-completion
+#            flush (never spans a loop turn by construction — a growing
+#            dwell means flush groups are forming across big completion
+#            bursts, the batching-degree signal's latency face)
+#   encode   wire encode of one outbound batch (header-prefix template +
+#            pack_batch on the native build), observed per
+#            encode_message_batch call by metrics-enabled egress writers.
+#            Under sharded egress (SiloConfig.egress_shards) the encode
+#            runs on a shard loop: it is STAMPED shard-side and
+#            REPLAYED loop-side over the shard's stat ring (the PR-9/11
+#            loop-confinement rule) — same series, same semantics, and
+#            dwell then spans accumulator + egress ring + sender queue
+#            (the whole pre-encode wait, stamped at shard encode time)
+#
+#   group    flush-group size (COUNT_BOUNDS histogram — the egress twin
+#            of ingest frame_batch: responses per hand-off unit)
+#
+# Everything is gated on SiloConfig.metrics_enabled exactly like the
+# ingest stages — one attr check per site when off.
+EGRESS_STAGES = ("build", "dwell", "encode")
+
+EGRESS_STATS = {
+    "build": "egress.build.seconds",
+    "dwell": "egress.dwell.seconds",
+    "encode": "egress.encode.seconds",
+    "group": "egress.flush_group.size",       # COUNT_BOUNDS histogram
+    "responses": "egress.responses",          # counter: responses batched
+    # counter: messages dropped at a FULL egress shard ring (bounded
+    # backpressure toward a wedged peer — the only direction possible
+    # for a producer that cannot pause response generation; senders
+    # learn via response timeout exactly like a dead-peer send drop)
+    "ring_drops": "egress.ring_drops",
+}
+
+
+# Canonical shm-ring stage metrics — the cross-process leg of the ingest
+# decomposition (runtime.multiproc: worker SO_REUSEPORT silos feed the
+# device owner over shared-memory SPSC staging rings; responses return
+# over per-worker response rings). Stage histograms attribute the ring
+# hop the same way INGEST_STAGES attribute the in-process pipeline:
+#
+#   staging_dwell   push (worker-side VectorShmClient.call_group) ->
+#                   pop (owner-side WorkerSupervisor drain) of one
+#                   staging-ring record, against the system-wide
+#                   CLOCK_MONOTONIC stamp carried in the record.
+#                   Stamped push-side in the worker process, observed
+#                   pop-side on the owner's loop (the cross-PROCESS
+#                   analog of the stamp-and-replay rule: the stamp is
+#                   plain bytes in the ring record, the observe runs
+#                   loop-confined on the consumer)
+#   response_dwell  push (owner-side _flush_link) -> pop (worker-side
+#                   response drain) of one response batch — the return
+#                   leg, observed on the worker's loop
+#   drain_batch     records drained per owner wakeup (COUNT_BOUNDS —
+#                   the ring twin of ingest frame_batch: a rising batch
+#                   size under load is the rings' natural coalescing)
+#   group           packed-group size: vector subs per "vec" record
+#                   (COUNT_BOUNDS — the cross-process batching degree)
+#   hops            relay hop count per record (COUNT_BOUNDS — 1 for
+#                   the direct worker->owner path today; forwarded/
+#                   re-pushed records would accumulate here)
+#
+# Everything is gated on SiloConfig.metrics_enabled exactly like the
+# ingest/egress stages — one attr check per site when off.
+RING_STAGES = ("staging_dwell", "response_dwell")
+
+RING_STATS = {
+    "staging_dwell": "ring.staging.dwell.seconds",
+    "response_dwell": "ring.response.dwell.seconds",
+    "drain_batch": "ring.drain_batch.size",      # COUNT_BOUNDS histogram
+    "group": "ring.packed_group.size",           # COUNT_BOUNDS histogram
+    "hops": "ring.relay.hops",                   # COUNT_BOUNDS histogram
+    "records": "ring.records",                   # counter: records drained
+}
+
+
+# Canonical SLO-engine metric names (observability.slo.SloMonitor writes
+# these; the management surface, the Prometheus endpoint, and the
+# gauntlet verdicts read them by name). Per-objective gauges are
+# formatted with the objective name: ``SLO_STATS['burn_fast'] % name``.
+SLO_STATS = {
+    "breaches": "slo.breaches",                 # counter: breach episodes
+    "evaluations": "slo.evaluations",           # counter: monitor ticks
+    "breach": "slo.breach.%s",                  # counter per objective
+    "burn_fast": "slo.%s.burn_fast",            # gauge: fast-window burn
+    "burn_slow": "slo.%s.burn_slow",            # gauge: slow-window burn
+    "budget_burned": "slo.%s.budget_burned",    # gauge: cum budget spent
+    "breached": "slo.%s.breached",              # gauge: 0/1 current state
+    # membership probe round-trip latency (membership.oracle observes one
+    # sample per probe) — the QoS-category SLO source proving PING
+    # traffic never sits behind application load or SLO evaluation
+    "probe_rtt": "membership.probe.rtt.seconds",
+    # host-turn failures (dispatcher._run_turn error path) — the
+    # error-rate objective's bad-event counter
+    "turn_errors": "turns.errors",
+}
+
+
+class Histogram:
+    """Fixed-bucket histogram (HistogramValueStatistic). Default bounds
+    are latency seconds; size/count series pass their own (SIZE_BOUNDS /
+    COUNT_BOUNDS below) — non-default bounds ride along in
+    :meth:`summary` so snapshots merge and expose losslessly."""
+
+    # default bucket upper bounds in seconds
+    BOUNDS = [0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+              0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, float("inf")]
+
+    def __init__(self, bounds: list[float] | None = None) -> None:
+        self.bounds = self.BOUNDS if bounds is None else list(bounds)
+        self.counts = [0] * len(self.bounds)
+        self.total = 0
+        self.sum = 0.0
+        # per-bucket OpenMetrics exemplars: bucket index -> (value,
+        # trace_id, wall ts). Lazily allocated — the common untraced
+        # histogram carries None and pays one attr slot
+        self.exemplars: dict[int, tuple[float, int, float]] | None = None
+
+    def observe(self, value: float) -> None:
+        self.counts[bisect.bisect_left(self.bounds, value)] += 1
+        self.total += 1
+        self.sum += value
+
+    def exemplar(self, value: float, trace_id: int) -> None:
+        """Attach an OpenMetrics exemplar to the bucket ``value`` lands
+        in (last-writer-wins per bucket, the standard exemplar
+        discipline): the observation was made by a SAMPLED request, so a
+        slow bucket on the exposition endpoint links straight into the
+        tail-retained trace that filled it. Separate from observe() so
+        the unsampled hot path never takes an extra argument."""
+        ex = self.exemplars
+        if ex is None:
+            ex = self.exemplars = {}
+        ex[min(bisect.bisect_left(self.bounds, value),
+               len(self.counts) - 1)] = (value, trace_id, time.time())
+
+    def percentile(self, p: float) -> float:
+        """Approximate percentile from bucket bounds (upper bound of the
+        bucket containing the p-quantile observation)."""
+        if self.total == 0:
+            return 0.0
+        rank = p * self.total
+        seen = 0
+        for i, c in enumerate(self.counts):
+            seen += c
+            if seen >= rank:
+                return self.bounds[i]
+        return self.bounds[-1]
+
+    def quantile(self, q: float) -> float:
+        """Arbitrary-quantile read (the exposition-friendly name for
+        :meth:`percentile`; q in [0, 1])."""
+        return self.percentile(q)
+
+    def bucket_labels(self) -> list[str]:
+        """Prometheus/OpenMetrics ``le`` label values, one per bucket, in
+        bound order with the terminal ``+Inf`` — so the exposition endpoint
+        serves this histogram without re-bucketing."""
+        return [("+Inf" if b == float("inf") else f"{b:g}")
+                for b in self.bounds]
+
+    def cumulative_counts(self) -> list[int]:
+        """Per-bucket counts as the cumulative form the Prometheus
+        ``_bucket`` series requires (monotone, last == count)."""
+        out, running = [], 0
+        for c in self.counts:
+            running += c
+            out.append(running)
+        return out
+
+    @property
+    def mean(self) -> float:
+        return self.sum / self.total if self.total else 0.0
+
+    def merge(self, other: "Histogram") -> "Histogram":
+        """Fold another histogram in — the management grain aggregates
+        per-silo histograms cluster-wide with this.
+
+        Mismatched per-instance bucket bounds (one silo created a series
+        with SIZE_BOUNDS, another with the latency defaults — the
+        first-creation-wins ``histogram_with`` race across silos) widen
+        DETERMINISTICALLY instead of silently mis-bucketing positionally:
+        each source bucket folds into the target bucket whose range
+        contains the source bucket's upper bound (counts can only move
+        coarser, never into a lower bucket, so merged quantiles are
+        conservative upper bounds). Exemplars re-locate by their exact
+        observed value either way."""
+        if other.bounds == self.bounds:
+            for i, c in enumerate(other.counts):
+                self.counts[i] += c
+        else:
+            last = len(self.counts) - 1
+            for b, c in zip(other.bounds, other.counts):
+                if c:
+                    self.counts[min(bisect.bisect_left(self.bounds, b),
+                                    last)] += c
+        self.total += other.total
+        self.sum += other.sum
+        if other.exemplars:
+            for v, tid, ts in other.exemplars.values():
+                mine = self.exemplars or {}
+                idx = min(bisect.bisect_left(self.bounds, v),
+                          len(self.counts) - 1)
+                cur = mine.get(idx)
+                if cur is None or ts >= cur[2]:  # newest exemplar wins
+                    mine[idx] = (v, tid, ts)
+                    self.exemplars = mine
+        return self
+
+    def summary(self) -> dict:
+        """The snapshot form (per-bucket counts — and non-default bounds
+        and exemplars — ride along so summaries merge losslessly via
+        :meth:`from_snapshot`)."""
+        out = {"count": self.total, "sum": self.sum, "mean": self.mean,
+               "p50": self.percentile(0.5), "p95": self.percentile(0.95),
+               "p99": self.percentile(0.99), "buckets": list(self.counts)}
+        if self.bounds is not self.BOUNDS:
+            out["bounds"] = list(self.bounds)
+        if self.exemplars:
+            # str keys: the snapshot is a wire/JSON form
+            out["exemplars"] = {str(i): list(e)
+                                for i, e in self.exemplars.items()}
+        return out
+
+    @classmethod
+    def from_snapshot(cls, d: dict) -> "Histogram":
+        """Rebuild from a :meth:`summary` dict (cross-silo aggregation:
+        snapshots travel the wire, histogram objects do not). A bucket
+        list that disagrees with its own bounds is corrupt — raise
+        rather than mis-state counts against the wrong buckets."""
+        h = cls(d.get("bounds"))
+        counts = d.get("buckets")
+        if counts:
+            if len(counts) != len(h.counts):
+                raise ValueError(
+                    f"histogram snapshot carries {len(counts)} buckets "
+                    f"for {len(h.counts)} bounds — refusing to "
+                    "mis-bucket a corrupt snapshot")
+            h.counts = [int(c) for c in counts]
+        h.total = int(d.get("count", sum(h.counts)))
+        h.sum = float(d.get("sum", 0.0))
+        ex = d.get("exemplars")
+        if ex:
+            h.exemplars = {int(i): (float(v), int(t), float(ts))
+                           for i, (v, t, ts) in ex.items()}
+        return h
+
+    def delta(self, snapshot: dict | None) -> "Histogram":
+        """Interval diff: a NEW histogram holding the observations made
+        since ``snapshot`` (a prior :meth:`summary` of this same series)
+        was taken — the primitive burn-rate windows and attribution
+        benches are built on, replacing hand-rolled snapshot subtraction.
+
+        ``snapshot=None`` (no prior read) returns a copy of the whole
+        cumulative state. Mismatched bucket bounds (the series was
+        re-created with different bounds between reads, or the snapshot
+        crossed silos) are safe via the same deterministic widening rule
+        :meth:`merge` uses — each snapshot bucket folds into the bucket
+        of THIS histogram's bounds containing its upper bound before
+        subtracting, so counts never subtract positionally against the
+        wrong bucket. Per-bucket differences clamp at zero (a widened
+        fold can shift counts across buckets; clamping keeps the delta
+        conservative rather than negative), ``count`` is the sum of the
+        clamped buckets, and ``sum`` clamps at 0.0. Exemplars do not
+        carry (they are last-writer point events, not interval state)."""
+        bounds = None if self.bounds is self.BOUNDS else self.bounds
+        out = Histogram(bounds)
+        out.counts = list(self.counts)
+        out.sum = self.sum
+        if snapshot:
+            prev = Histogram.from_snapshot(snapshot)
+            if prev.bounds != self.bounds:
+                # widen the snapshot's counts onto OUR bounds first
+                # (merge's coarsening rule), then subtract
+                folded = [0] * len(self.counts)
+                last = len(folded) - 1
+                for b, c in zip(prev.bounds, prev.counts):
+                    if c:
+                        folded[min(bisect.bisect_left(self.bounds, b),
+                                   last)] += c
+                prev_counts = folded
+            else:
+                prev_counts = prev.counts
+            out.counts = [max(0, c - p)
+                          for c, p in zip(out.counts, prev_counts)]
+            out.sum = max(0.0, out.sum - prev.sum)
+        out.total = sum(out.counts)
+        return out
+
+    def good_below(self, threshold: float) -> int:
+        """Observations provably <= ``threshold`` from bucket counts:
+        the sum of buckets whose upper bound does not exceed it (the
+        bucket the threshold falls INSIDE is excluded — conservative,
+        like merged quantiles). The SLI numerator for latency
+        objectives: good = fast-enough events."""
+        good = 0
+        for b, c in zip(self.bounds, self.counts):
+            if b > threshold:
+                break
+            good += c
+        return good
+
+
+class QueueWaitTrend:
+    """Windowed mean of the ingest queue-wait signal, for the load-shed
+    decision (ROADMAP metrics follow-on: shed on queue-wait TREND, not
+    instantaneous depth). Bounded (ts, seconds) samples over ``window``
+    seconds with an O(1) running sum; fed from the same sites that
+    observe ``INGEST_STATS['queue_wait']`` (host turn start + device
+    batch start), so a gateway sheds while messages are *waiting long*,
+    which depth alone misses when the queue is short but slow-draining.
+    Single-loop use only (no locking, like the registry itself)."""
+
+    __slots__ = ("window", "max_samples", "_samples", "_sum")
+
+    def __init__(self, window: float = 5.0, max_samples: int = 4096):
+        self.window = window
+        self.max_samples = max_samples
+        self._samples: deque[tuple[float, float]] = deque()
+        self._sum = 0.0
+
+    def note(self, seconds: float, now: float | None = None) -> None:
+        now = time.monotonic() if now is None else now
+        self._samples.append((now, seconds))
+        self._sum += seconds
+        if len(self._samples) > self.max_samples:
+            _, v = self._samples.popleft()
+            self._sum -= v
+        self._evict(now)
+
+    def _evict(self, now: float) -> None:
+        cutoff = now - self.window
+        samples = self._samples
+        while samples and samples[0][0] < cutoff:
+            _, v = samples.popleft()
+            self._sum -= v
+
+    def mean(self, now: float | None = None) -> float:
+        self._evict(time.monotonic() if now is None else now)
+        n = len(self._samples)
+        return self._sum / n if n else 0.0
+
+    def __len__(self) -> int:
+        return len(self._samples)
+
+
+class CallSiteStats:
+    """Per-(grain_class, method) call-site latency/error table — bounded,
+    fed by the dispatcher's turn epilogue when ``metrics_enabled`` (one
+    dict lookup + four scalar updates per turn; nothing is installed
+    when metrics are off). The drill-down an SLO breach needs: which
+    grain methods are hot/slow/erroring RIGHT NOW — and the per-class
+    load signal the placement-policy compiler direction needs.
+
+    Bounded at ``cap`` distinct sites: method cardinality is static in
+    practice, but a pathological dynamic-interface workload must not
+    grow an unbounded dict on the turn path — sites past the cap are
+    counted in ``overflow`` and dropped. Single-loop use only (no
+    locking, like the registry itself)."""
+
+    __slots__ = ("cap", "sites", "overflow")
+
+    def __init__(self, cap: int = 256):
+        self.cap = cap
+        # (interface, method) -> [count, errors, sum_seconds, max_seconds]
+        self.sites: dict[tuple[str, str], list] = {}
+        self.overflow = 0
+
+    def note(self, interface: str, method: str, seconds: float,
+             error: bool = False) -> None:
+        key = (interface, method)
+        e = self.sites.get(key)
+        if e is None:
+            if len(self.sites) >= self.cap:
+                self.overflow += 1
+                return
+            e = self.sites[key] = [0, 0, 0.0, 0.0]
+        e[0] += 1
+        if error:
+            e[1] += 1
+        e[2] += seconds
+        if seconds > e[3]:
+            e[3] = seconds
+
+    def top(self, k: int = 10, by: str = "sum") -> list[dict]:
+        """The K hottest call sites, ranked by summed turn seconds
+        (``by="sum"``, the load view), call count (``"count"``), errors
+        (``"errors"``), or worst single turn (``"max"``)."""
+        return self.format_top(
+            {f"{i}.{m}": e for (i, m), e in self.sites.items()}, k, by)
+
+    @staticmethod
+    def format_top(sites: dict, k: int = 10, by: str = "sum"
+                   ) -> list[dict]:
+        """Rank + render ``{site_name: [count, errors, sum, max]}`` rows
+        (the :meth:`snapshot`/:meth:`merge` wire form) as the top-K
+        table — ONE formatter shared by per-silo :meth:`top` and the
+        ManagementGrain's cluster merge, so the two views cannot
+        drift."""
+        idx = {"count": 0, "errors": 1, "sum": 2, "max": 3}[by]
+        ranked = sorted(sites.items(), key=lambda kv: kv[1][idx],
+                        reverse=True)[:k]
+        return [{"site": site, "count": e[0], "errors": e[1],
+                 "seconds": round(e[2], 6),
+                 "mean_ms": round(e[2] / e[0] * 1e3, 3) if e[0] else 0.0,
+                 "max_ms": round(e[3] * 1e3, 3)}
+                for site, e in ranked]
+
+    def snapshot(self, k: int | None = None) -> dict:
+        """Wire/JSON form for the management fan-out (``k`` bounds the
+        payload to the top-K by summed seconds; None ships everything)."""
+        items = self.sites.items()
+        if k is not None and len(self.sites) > k:
+            items = sorted(items, key=lambda kv: kv[1][2],
+                           reverse=True)[:k]
+        return {"sites": {f"{i}.{m}": list(e) for (i, m), e in items},
+                "overflow": self.overflow}
+
+    @staticmethod
+    def merge(snapshots) -> dict:
+        """Fold per-silo :meth:`snapshot` payloads into one cluster-wide
+        table (counts/errors/seconds sum, max takes the max)."""
+        out: dict[str, list] = {}
+        overflow = 0
+        for snap in snapshots:
+            overflow += snap.get("overflow", 0)
+            for site, e in snap.get("sites", {}).items():
+                cur = out.get(site)
+                if cur is None:
+                    out[site] = list(e)
+                else:
+                    cur[0] += e[0]
+                    cur[1] += e[1]
+                    cur[2] += e[2]
+                    cur[3] = max(cur[3], e[3])
+        return {"sites": out, "overflow": overflow}
+
+
+# payload-size buckets (bytes) and small-count buckets (batch sizes) for
+# the ingest size/shape histograms — pass to StatsRegistry.histogram_with
+SIZE_BOUNDS = [64.0, 256.0, 1024.0, 4096.0, 16384.0, 65536.0, 262144.0,
+               1048576.0, 4194304.0, float("inf")]
+COUNT_BOUNDS = [1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0,
+                float("inf")]
+
+
+class StatsRegistry:
+    """Named counters/gauges/histograms (CounterStatistic registry)."""
+
+    def __init__(self) -> None:
+        self.counters: dict[str, int] = {}
+        self.gauges: dict[str, Callable[[], float]] = {}
+        self.histograms: dict[str, Histogram] = {}
+
+    def increment(self, name: str, delta: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + delta
+
+    def get(self, name: str) -> int:
+        return self.counters.get(name, 0)
+
+    def register_gauge(self, name: str, fn: Callable[[], float]) -> None:
+        self.gauges[name] = fn
+
+    def set_gauge(self, name: str, value: float) -> None:
+        """Point-in-time gauge write (IntValueStatistic set-style use —
+        e.g. a rebalance round records its outcome once per round rather
+        than registering a live callable)."""
+        self.gauges[name] = lambda: value
+
+    def gauge(self, name: str) -> float:
+        fn = self.gauges.get(name)
+        return fn() if fn is not None else 0.0
+
+    def histogram(self, name: str) -> Histogram:
+        h = self.histograms.get(name)
+        if h is None:
+            h = self.histograms[name] = Histogram()
+        return h
+
+    def histogram_with(self, name: str, bounds: list[float]) -> Histogram:
+        """Histogram with non-default bucket bounds (size/count series —
+        e.g. ``SIZE_BOUNDS`` for frame bytes); bounds apply on first
+        creation only, so call sites can pass them unconditionally."""
+        h = self.histograms.get(name)
+        if h is None:
+            h = self.histograms[name] = Histogram(bounds)
+        return h
+
+    def observe(self, name: str, value: float) -> None:
+        self.histogram(name).observe(value)
+
+    def snapshot(self) -> dict:
+        """Dump for LogStatistics / management queries."""
+        return {
+            "counters": dict(self.counters),
+            "gauges": {k: fn() for k, fn in self.gauges.items()},
+            "histograms": {k: h.summary()
+                           for k, h in self.histograms.items()},
+            "ts": time.time(),
+        }

@@ -1,0 +1,338 @@
+"""Grain persistence: provider abstraction + bridge + dev providers.
+
+Re-design of Orleans' src/Orleans.Core/Providers/IGrainStorage.cs and
+Orleans' src/Orleans.Runtime/Storage/StateStorageBridge.cs:11,49,80,107,
+with the dev/test providers of OrleansProviders/Storage/MemoryStorage.cs and
+``MemoryStorageWithLatency`` (fault/latency injection for tests).
+
+Etag protocol: every stored record carries an opaque etag; writes must present
+the etag from the last read/write or fail with InconsistentStateError, which
+deactivates the activation (InsideRuntimeClient.cs:390-402) — resume = rebuild
+from storage on the next call.
+
+The port's copy of ``orleans_tpu.storage.core``.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import itertools
+import json
+import os
+import uuid
+from typing import TYPE_CHECKING, Any
+
+from ..core.errors import InconsistentStateError
+from ..core.ids import GrainId
+from ..core.serialization import deserialize, serialize, serialize_portable
+
+if TYPE_CHECKING:
+    from ..runtime.activation import ActivationData
+
+__all__ = [
+    "GrainStorage", "MemoryStorage", "FileStorage", "StorageManager",
+    "StateStorageBridge", "ErrorInjectionStorage", "LatencyStorage",
+]
+
+
+class GrainStorage:
+    """Provider interface (``IGrainStorage``): etag-checked read/write/clear
+    keyed by (grain type name, grain id)."""
+
+    async def read(self, grain_type: str, grain_id: GrainId
+                   ) -> tuple[Any, str | None]:
+        """Returns (state, etag); (None, None) when absent."""
+        raise NotImplementedError
+
+    async def write(self, grain_type: str, grain_id: GrainId, state: Any,
+                    etag: str | None) -> str:
+        """CAS write; returns the new etag; raises InconsistentStateError on
+        etag mismatch."""
+        raise NotImplementedError
+
+    async def clear(self, grain_type: str, grain_id: GrainId,
+                    etag: str | None) -> None:
+        raise NotImplementedError
+
+
+def _key(grain_type: str, grain_id: GrainId) -> tuple:
+    return (grain_type, grain_id.uniform_hash, str(grain_id.key), grain_id.key_ext)
+
+
+class MemoryStorage(GrainStorage):
+    """In-memory dev provider (MemoryStorage.cs). Serializes state through the
+    wire codec so storage isolation matches a real remote store."""
+
+    def __init__(self) -> None:
+        self._data: dict[tuple, tuple[bytes, str]] = {}
+
+    async def read(self, grain_type, grain_id):
+        rec = self._data.get(_key(grain_type, grain_id))
+        if rec is None:
+            return None, None
+        blob, etag = rec
+        return deserialize(blob), etag
+
+    _etag_seq = itertools.count(1)
+
+    async def write(self, grain_type, grain_id, state, etag):
+        k = _key(grain_type, grain_id)
+        cur = self._data.get(k)
+        cur_etag = cur[1] if cur else None
+        if etag != cur_etag:
+            raise InconsistentStateError(
+                f"etag mismatch for {grain_id}", stored_etag=cur_etag,
+                current_etag=etag)
+        # etags only need to be unique per store: a counter is ~3x
+        # cheaper than uuid4 on the write-behind hot path
+        new_etag = f"e{next(self._etag_seq)}"
+        self._data[k] = (serialize(state), new_etag)
+        return new_etag
+
+    async def clear(self, grain_type, grain_id, etag):
+        k = _key(grain_type, grain_id)
+        cur = self._data.get(k)
+        if cur is None:
+            return
+        if etag != cur[1]:
+            raise InconsistentStateError(
+                f"etag mismatch for {grain_id}", stored_etag=cur[1],
+                current_etag=etag)
+        self._data.pop(k, None)
+
+
+def _file_read_blob(path: str) -> "tuple[bytes | None, str | None]":
+    """Sync half of FileStorage.read — runs in the loop's thread executor
+    so file IO never stalls grain turns (the OTPU002 discipline)."""
+    try:
+        with open(path, "rb") as f:
+            meta_len = int.from_bytes(f.read(4), "little")
+            meta = json.loads(f.read(meta_len))
+            blob = f.read()
+        return blob, meta["etag"]
+    except FileNotFoundError:
+        return None, None
+
+
+def _file_write_blob(path: str, meta: bytes, blob: bytes) -> None:
+    """Sync half of FileStorage.write (executor-run): tmp + atomic
+    replace, so a crash mid-write never leaves a torn record."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(len(meta).to_bytes(4, "little"))
+        f.write(meta)
+        f.write(blob)
+    os.replace(tmp, path)
+
+
+class FileStorage(GrainStorage):
+    """Durable single-host provider: one JSON-indexed blob dir. Plays the
+    role of the reference's cloud table providers for local deployments.
+    File IO runs through ``loop.run_in_executor`` — a slow disk stalls
+    only the writing activation, never the whole silo's event loop. A
+    per-store mutation lock keeps the etag check-then-write atomic across
+    the executor suspensions (the pure-sync body used to get that for
+    free from loop atomicity; concurrent CAS writers must still lose)."""
+
+    def __init__(self, root: str) -> None:
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+        self._mutate_lock = asyncio.Lock()
+
+    def _path(self, grain_type: str, grain_id: GrainId) -> str:
+        name = f"{grain_type}-{grain_id.uniform_hash:016x}"
+        return os.path.join(self.root, name)
+
+    async def read(self, grain_type, grain_id):
+        p = self._path(grain_type, grain_id)
+        blob, etag = await asyncio.get_running_loop().run_in_executor(
+            None, _file_read_blob, p)
+        if blob is None:
+            return None, None
+        return deserialize(blob), etag
+
+    async def write(self, grain_type, grain_id, state, etag):
+        async with self._mutate_lock:
+            _, cur_etag = await self.read(grain_type, grain_id)
+            if etag != cur_etag:
+                raise InconsistentStateError(
+                    f"etag mismatch for {grain_id}", stored_etag=cur_etag,
+                    current_etag=etag)
+            new_etag = uuid.uuid4().hex
+            meta = json.dumps({"etag": new_etag}).encode()
+            # serialize on the loop (touches live state; executor threads
+            # must only see immutable bytes), write in the executor
+            blob = serialize_portable(state)
+            await asyncio.get_running_loop().run_in_executor(
+                None, _file_write_blob, self._path(grain_type, grain_id),
+                meta, blob)
+            return new_etag
+
+    async def clear(self, grain_type, grain_id, etag):
+        async with self._mutate_lock:
+            _, cur_etag = await self.read(grain_type, grain_id)
+            if cur_etag is None:
+                return
+            if etag != cur_etag:
+                raise InconsistentStateError(
+                    f"etag mismatch for {grain_id}", stored_etag=cur_etag,
+                    current_etag=etag)
+            os.remove(self._path(grain_type, grain_id))
+
+
+# ---------------------------------------------------------------------------
+# Test/fault-injection providers (ErrorInjectionStorageProvider,
+# MemoryStorageWithLatency — test/TesterInternal/)
+# ---------------------------------------------------------------------------
+
+class ErrorInjectionStorage(GrainStorage):
+    """Wraps a provider; raises on demand (ErrorInjectionStorageProvider)."""
+
+    def __init__(self, inner: GrainStorage):
+        self.inner = inner
+        self.fail_reads = False
+        self.fail_writes = False
+
+    async def read(self, grain_type, grain_id):
+        if self.fail_reads:
+            raise IOError("injected read failure")
+        return await self.inner.read(grain_type, grain_id)
+
+    async def write(self, grain_type, grain_id, state, etag):
+        if self.fail_writes:
+            raise IOError("injected write failure")
+        return await self.inner.write(grain_type, grain_id, state, etag)
+
+    async def clear(self, grain_type, grain_id, etag):
+        return await self.inner.clear(grain_type, grain_id, etag)
+
+
+class LatencyStorage(GrainStorage):
+    """Adds fixed latency (MemoryStorageWithLatency)."""
+
+    def __init__(self, inner: GrainStorage, latency: float):
+        self.inner = inner
+        self.latency = latency
+
+    async def read(self, grain_type, grain_id):
+        await asyncio.sleep(self.latency)
+        return await self.inner.read(grain_type, grain_id)
+
+    async def write(self, grain_type, grain_id, state, etag):
+        await asyncio.sleep(self.latency)
+        return await self.inner.write(grain_type, grain_id, state, etag)
+
+    async def clear(self, grain_type, grain_id, etag):
+        await asyncio.sleep(self.latency)
+        return await self.inner.clear(grain_type, grain_id, etag)
+
+
+# ---------------------------------------------------------------------------
+# Bridge + manager
+# ---------------------------------------------------------------------------
+
+class StateStorageBridge:
+    """Per-activation storage facade holding the current etag
+    (StateStorageBridge.cs:11,49,80,107). ``manager`` (when attached)
+    counts in-flight operations — the storage queue-depth signal the
+    metrics sampler reads."""
+
+    def __init__(self, provider: GrainStorage, grain_type: str,
+                 grain_id: GrainId, manager: "StorageManager | None" = None):
+        self.provider = provider
+        self.grain_type = grain_type
+        self.grain_id = grain_id
+        self.etag: str | None = None
+        self.manager = manager
+
+    def _prof(self):
+        """Loop-occupancy hook: provider awaits run in THIS coroutine's
+        context, so an enter("storage") here labels every resumption step
+        during the provider call as storage IO on the loop (exit restores
+        the surrounding turn's category). None when profiling is off."""
+        mgr = self.manager
+        return mgr.loop_prof if mgr is not None else None
+
+    async def read(self):
+        mgr = self.manager
+        if mgr is not None:
+            mgr.inflight += 1
+        lp = self._prof()
+        tok = lp.enter("storage") if lp is not None else None
+        try:
+            state, self.etag = await self.provider.read(
+                self.grain_type, self.grain_id)
+        finally:
+            if tok is not None:
+                lp.exit(tok)
+            if mgr is not None:
+                mgr.inflight -= 1
+        return state
+
+    async def write(self, state) -> None:
+        mgr = self.manager
+        if mgr is not None:
+            mgr.inflight += 1
+        lp = self._prof()
+        tok = lp.enter("storage") if lp is not None else None
+        try:
+            self.etag = await self.provider.write(
+                self.grain_type, self.grain_id, state, self.etag)
+        finally:
+            if tok is not None:
+                lp.exit(tok)
+            if mgr is not None:
+                mgr.inflight -= 1
+
+    async def clear(self) -> None:
+        mgr = self.manager
+        if mgr is not None:
+            mgr.inflight += 1
+        lp = self._prof()
+        tok = lp.enter("storage") if lp is not None else None
+        try:
+            await self.provider.clear(self.grain_type, self.grain_id,
+                                      self.etag)
+        finally:
+            if tok is not None:
+                lp.exit(tok)
+            if mgr is not None:
+                mgr.inflight -= 1
+        self.etag = None
+
+
+class StorageManager:
+    """Named-provider registry (the DI provider registration analog).
+    ``inflight`` is the number of storage operations currently awaiting
+    their provider (reads + writes + clears across every bridge minted by
+    this manager) — sampled as ``storage.inflight_ops``."""
+
+    DEFAULT = "Default"
+
+    def __init__(self) -> None:
+        self.providers: dict[str, GrainStorage] = {}
+        self.inflight = 0
+        # host-loop occupancy profiler (set by the owning silo when
+        # profiling_enabled): bridges label their provider awaits as
+        # "storage" loop time through this ref
+        self.loop_prof = None
+
+    def add(self, name: str, provider: GrainStorage) -> None:
+        self.providers[name] = provider
+
+    def get(self, name: str | None) -> GrainStorage:
+        name = name or self.DEFAULT
+        if name not in self.providers:
+            if name == self.DEFAULT:
+                # dev default, like AddMemoryGrainStorageAsDefault
+                self.providers[name] = MemoryStorage()
+            else:
+                raise KeyError(f"no storage provider named {name!r}")
+        return self.providers[name]
+
+    def bridge_for(self, activation: "ActivationData") -> StateStorageBridge:
+        provider = self.get(
+            getattr(activation.grain_class, "STORAGE_PROVIDER", None))
+        return StateStorageBridge(
+            provider, activation.grain_class.__name__, activation.grain_id,
+            manager=self)

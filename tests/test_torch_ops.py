@@ -13,6 +13,7 @@ one unit in the last place of the output dtype, because each float32 sum
 is rounded once more when cast back to that dtype (float16 here).
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -383,16 +384,24 @@ def test_device_directory31_matches_jax():
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, pkgutil, importlib, orleans_tpu_torch\n"
+        "import sys, pkgutil, importlib\n"
+        "import orleans_tpu_torch.runtime, orleans_tpu_torch.storage\n"
+        "import orleans_tpu_torch.dispatch.hosting\n"
+        "def bad():\n"
+        "    return [m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'orleans_tpu' or "
+        "m.startswith('orleans_tpu.')]\n"
+        "assert not bad(), bad()\n"
+        "import orleans_tpu_torch\n"
         "for m in pkgutil.walk_packages(orleans_tpu_torch.__path__, "
         "'orleans_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'orleans_tpu' or m.startswith('orleans_tpu.')]\n"
-        "assert not bad, bad\n"
+        "assert not bad(), bad()\n"
         "for m in ('core.ids', 'config', 'observability', "
-        "'dispatch.reshard', 'dispatch.replicated', 'dispatch.engine', "
-        "'interop'):\n"
+        "'observability.profiling', 'dispatch.reshard', "
+        "'dispatch.replicated', 'dispatch.engine', 'dispatch.hosting', "
+        "'interop', 'runtime.silo', 'runtime.dispatcher', "
+        "'storage.checkpoint', 'directory.locator'):\n"
         "    assert 'orleans_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('orleans_tpu_torch')]))\n")
@@ -400,7 +409,21 @@ def test_port_imports_no_jax():
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parent.parent)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 50
+
+
+def test_port_sources_import_no_jax():
+    """No file of the port imports jax, orbax or the JAX package, lazily
+    or not."""
+    pattern = re.compile(
+        r"^\s*(import (jax|orbax|orleans_tpu)\b(?!_torch)"
+        r"|from (jax|orbax|orleans_tpu)\b(?!_torch))", re.M)
+    root = Path(__file__).resolve().parent.parent / "orleans_tpu_torch"
+    files = sorted(root.rglob("*.py"))
+    assert len(files) >= 50
+    hits = [f"{f.relative_to(root)}: {m.group(0).strip()}"
+            for f in files for m in pattern.finditer(f.read_text())]
+    assert not hits, hits
 
 
 def test_make_mesh_default_is_cuda_or_raises():
