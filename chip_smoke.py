@@ -69,7 +69,6 @@ ms) and ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import asyncio
-import functools
 import json
 import math
 import os
@@ -93,7 +92,9 @@ N_E = 1 << 20  # Phase E: bench.py's population, rounded to 2^20
 N_G = 1 << 20  # Phase G: subscribers of the celebrity fan-out
 N_H = 1 << 20  # Phase H: hosted Presence players, Phase E's population
 N_I = 20_000   # Phase I: the card against the CPU
-HOSTED_TIMEOUT = 600.0  # Phase H-I response timeout, seconds
+N_J = 1 << 20  # Phase J: subscribers of the device-stream fan-out
+N_J_CPU = 20_000  # Phase J against the CPU
+J_REWIND = 4096  # Phase J: keys of the rewound subscription
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -149,6 +150,16 @@ def profiled_kernels(prof) -> dict[str, tuple[float, float]]:
             us = e.self_cuda_time_total
         ms, n = out.get(e.key, (0.0, 0))
         out[e.key] = (ms + us / 1e3, n + e.count)
+    return out
+
+
+def kernel_names(kernels) -> list[str]:
+    """Kernel names without return type, anonymous namespaces and
+    template or call arguments."""
+    out = []
+    for k in sorted(kernels):
+        k = k.removeprefix("void ").replace("(anonymous namespace)::", "")
+        out.append(re.split(r"[<(]", k)[0].strip())
     return out
 
 
@@ -430,7 +441,24 @@ def kernel_checks(dev):
     hv, hid = h_summary_inputs(dev, gen)
     seg(hv, hid, 64, "Phase H summary fan-in")
     check_repeat(lambda: segment_sum(hv, hid, 64), "K1 Phase H summary")
+    for label, g in j_chunk_dests(dev):
+        rank(g, SHARDS_B + 1, f"{label} route")
+        check_repeat(lambda: rank_by_dest(g, SHARDS_B + 1), f"K2 {label}")
     return errs, (dest, values, ids)
+
+
+def j_chunk_dests(dev):
+    """(label, K2 operand) of two Phase J delivery chunks: 16,384 of one
+    silo's subscribers in key order, the ring having split the keys
+    between two silos (here a seeded half), so every chunk spans all 8
+    owning shards; and the short last chunk of that silo's part."""
+    per = -(-N_J // SHARDS_B)
+    part = np.flatnonzero(np.random.default_rng(6).random(N_J) < 0.5)
+    tail = part.size - part.size % 16384
+    return [("Phase J delivery chunk",
+             g_chunk_dest(dev, part[:16384], per)),
+            (f"Phase J last chunk ({part.size - tail} targets)",
+             g_chunk_dest(dev, part[tail:], per))]
 
 
 def h_summary_inputs(dev, gen):
@@ -1063,8 +1091,8 @@ def phase_f(dev):
 
 class DeviceWindow:
     """A context manager that profiles the CUDA kernels run inside it (the
-    off-loop worker's too) and its wall time: ``busy_ms`` and
-    ``wall_ms`` after exit."""
+    off-loop worker's too) and its wall time: ``kernels`` (device ms and
+    launches by name), ``busy_ms`` and ``wall_ms`` after exit."""
 
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile
@@ -1079,8 +1107,44 @@ class DeviceWindow:
         torch.cuda.synchronize()
         self.wall_ms = (time.perf_counter() - self._t0) * 1e3
         self._prof.__exit__(*exc)
-        self.busy_ms = sum(ms for ms, _ in
-                           profiled_kernels(self._prof).values())
+        self.kernels = profiled_kernels(self._prof)
+        self.busy_ms = sum(ms for ms, _ in self.kernels.values())
+        return False
+
+
+class TraceWindow:
+    """A capture of the port's own ``observability.profiling.Profiler``
+    around a window: after exit, ``kernels`` (device ms and launches by
+    kernel name, from the finished profile), ``trace_kernels`` (the kernel
+    events of its ``trace.json``, by name), ``launched`` (K1's and K2's
+    launch counts inside the window) and ``wall_ms``."""
+
+    def __init__(self, log_dir: str):
+        from orleans_tpu_torch.observability.profiling import Profiler
+        self.log_dir = log_dir
+        self._prof = Profiler()
+
+    def __enter__(self):
+        from orleans_tpu_torch.ops import KERNELS
+        self._launches = {k.name: k.launches for k in KERNELS}
+        self._prof.start(self.log_dir)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        from orleans_tpu_torch.ops import KERNELS
+        self._prof.stop()
+        self.wall_ms = (time.perf_counter() - self._t0) * 1e3
+        self.launched = {k.name: k.launches - self._launches[k.name]
+                         for k in KERNELS}
+        self.kernels = profiled_kernels(self._prof.last)
+        with open(os.path.join(self.log_dir, "trace.json")) as f:
+            events = json.load(f).get("traceEvents", [])
+        self.trace_kernels = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                n = e.get("name", "")
+                self.trace_kernels[n] = self.trace_kernels.get(n, 0) + 1
         return False
 
 
@@ -1092,9 +1156,8 @@ def presence_sample():
 
 def drive_hosted(dev, n_players, profile=None):
     """``presence_torch.drive_presence`` over silos on ``dev`` (8 shards)
-    with its default schedule; returns (results, stats). The silo's and
-    the client's response timeout is HOSTED_TIMEOUT: a write-behind flush
-    of every row holds the loop for about 42 s at Phase H's size."""
+    with its default schedule and the default 30 s response timeout;
+    returns (results, stats)."""
     pt = presence_sample()
     from orleans_tpu_torch.parallel import make_mesh
     from orleans_tpu_torch.runtime import ClusterClient
@@ -1104,18 +1167,15 @@ def drive_hosted(dev, n_players, profile=None):
 
     def build(storage, checkpoint_dir):
         return pt.build_silo(n_players, mesh, storage=storage,
-                             checkpoint_dir=checkpoint_dir,
-                             response_timeout=HOSTED_TIMEOUT)
+                             checkpoint_dir=checkpoint_dir)
 
     scratch = os.path.join(ROOT, "orleans_tpu_torch", "_build")
     os.makedirs(scratch, exist_ok=True)
     ckdir = tempfile.mkdtemp(prefix="phase_h_ckpt_", dir=scratch)
     try:
         return asyncio.run(pt.drive_presence(
-            build, functools.partial(ClusterClient,
-                                     response_timeout=HOSTED_TIMEOUT),
-            MemoryStorage(), pt.PlayerVectorGrain, pt.GameGrain, sched,
-            ckdir, profile=profile))
+            build, ClusterClient, MemoryStorage(), pt.PlayerVectorGrain,
+            pt.GameGrain, sched, ckdir, profile=profile))
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
 
@@ -1130,24 +1190,35 @@ def phase_h(dev, card):
     from orleans_tpu_torch.dispatch import VectorRuntime
     from orleans_tpu_torch.ops import KERNELS, segment_sum
     from orleans_tpu_torch.parallel import make_mesh
-    windows = []
+    windows = {}
+    scratch = os.path.join(ROOT, "orleans_tpu_torch", "_build")
+    os.makedirs(scratch, exist_ok=True)
+    trace_dir = tempfile.mkdtemp(prefix="phase_h_trace_", dir=scratch)
 
-    def profile():
-        windows.append(DeviceWindow())
-        return windows[-1]
+    def profile(step):
+        windows[step] = (TraceWindow(trace_dir) if step == "summary"
+                         else DeviceWindow())
+        return windows[step]
 
+    pt = presence_sample()
     n_players = N_H
     t0 = time.perf_counter()
-    res, st = drive_hosted(dev, n_players, profile)
+    try:
+        res, st = drive_hosted(dev, n_players, profile)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
     wall = time.perf_counter() - t0
     launched = {k.name: k.launches for k in KERNELS}
 
     def step(name, count, what):
         secs, held = st[f"{name}_s"], st[f"{name}_flush_s"]
+        clear = (f"{count / (secs - held):.0f} {what}/sec outside them"
+                 if secs - held > 0.01 * secs else "all of it")
         return (f"{count / secs:.0f} {what}/sec, {secs:.3f} s, of which "
-                f"{held:.3f} s with the loop held by write-behind flushes "
-                f"({count / max(secs - held, 1e-9):.0f} {what}/sec outside "
-                f"them)")
+                f"{held:.3f} s overlapped by write-behind flushes "
+                f"({clear}); event-loop stalls over "
+                f"{pt.STALL_S * 1e3:.0f} ms {st[f'{name}_stalled_s']:.3f} s"
+                f", the longest {st[f'{name}_stall_s'] * 1e3:.1f} ms")
 
     calls = 16 * 4096
     print(f"Phase H: Presence hosted in a silo, {n_players} players x "
@@ -1167,7 +1238,7 @@ def phase_h(dev, card):
               f"({4096 / np.median(clear):.0f} calls/sec), min "
               f"{min(clear) * 1e3:.3f}, max {max(clear) * 1e3:.3f} ms on "
               f"{card}")
-    w = windows[0]
+    w = windows["batch"]
     print(f"  client.call_batch, last batch profiled: device busy "
           f"{w.busy_ms:.4f} ms of {w.wall_ms:.3f} ms wall (idle share "
           f"{max(0.0, 1 - w.busy_ms / w.wall_ms):.4f}) on {card}")
@@ -1184,17 +1255,32 @@ def phase_h(dev, card):
           f"{res['joined']} on {card}")
     print(f"  GameGrain.summary: 64 in {st['summary_s']:.3f} s "
           f"({st['summary_s'] / 64 * 1e3:.3f} ms/summary), of which "
-          f"{st['summary_flush_s']:.3f} s with the loop held by "
-          f"write-behind flushes on {card}")
+          f"{st['summary_flush_s']:.3f} s overlapped by write-behind "
+          f"flushes on {card}")
+    w = windows["summary"]
+    k1 = [k for k in w.kernels if "segment_sum_kernel" in k]
+    print(f"  GameGrain.summary, the last one in a capture of "
+          f"observability.profiling.Profiler: {w.wall_ms:.3f} ms wall; K1 "
+          f"launched {w.launched['segment_sum']} times in it; the "
+          f"profile's {len(w.kernels)} kernels {kernel_names(w.kernels)} "
+          f"(K1 among "
+          f"them: {bool(k1)}, device "
+          f"{sum(w.kernels[k][0] for k in k1):.4f} ms, all "
+          f"{sum(t for t, _ in w.kernels.values()):.4f} ms); trace.json: "
+          f"{sum(w.trace_kernels.values())} kernel events on {card}")
+    assert w.launched["segment_sum"] == 1, "the summary did not run K1"
+    assert k1 and any("segment_sum" in k for k in w.trace_kernels), \
+        "the port's Profiler missed the summary's K1 inside the silo"
     clear = st["summary_clear_s"]
     if clear:
         print(f"  GameGrain.summary, the {len(clear)} calls no flush "
               f"overlapped: median {np.median(clear) * 1e3:.3f} ms, min "
               f"{min(clear) * 1e3:.3f}, max {max(clear) * 1e3:.3f} ms on "
               f"{card}")
-    for kind in ("periodic", "final"):
+    for kind, what in (("periodic", "periodic flushes"),
+                       ("final", "the final drain in silo.stop")):
         rows, secs = st[f"{kind}_flush_rows"], st[f"{kind}_flush_s"]
-        print(f"  write-behind, {kind} flushes: {rows} rows in {secs:.3f} s"
+        print(f"  write-behind, {what}: {rows} rows in {secs:.3f} s"
               f" ({rows / secs if secs else 0:.0f} rows/sec) on {card}")
     print(f"  silo.stop {st['stop_s']:.3f} s; checkpoint: "
           f"{st['checkpoint_bytes']} bytes, save {st['save_s']:.3f} s, "
@@ -1204,7 +1290,6 @@ def phase_h(dev, card):
           f"{card}")
     # the summary's device work at its shapes: a table of n_players
     # activated by one wave, its operands as GameGrain builds them
-    pt = presence_sample()
     rt = VectorRuntime(make_mesh(SHARDS_B, dev),
                        capacity_per_shard=-(-n_players // SHARDS_B))
     rt.table(pt.PlayerVectorGrain).ensure_dense(n_players)
@@ -1248,6 +1333,349 @@ def phase_i(dev):
     same_results(got_cuda, got_cpu, "Phase I")
     print(f"Phase I: Phase H's drive at {N_I} players x {SHARDS_B} shards, "
           f"card == CPU, exactly (every answer and the final table)")
+
+
+def rewind_class():
+    from orleans_tpu_torch.dispatch import VectorGrain, actor_method
+
+    class RewindVec(VectorGrain):
+        """Phase J's rewound subscriber: counts and sums events and keeps
+        ``ok`` at 1 while every event exceeds the one before (the
+        publisher's values rise, so a replay out of order or twice
+        clears it)."""
+
+        STATE = {"events": (torch.int32, ()), "total": (torch.float32, ()),
+                 "last": (torch.float32, ()), "ok": (torch.int32, ())}
+
+        @staticmethod
+        def initial_state(key_hash):
+            return {"events": torch.zeros_like(key_hash),
+                    "total": key_hash.new_zeros((), dtype=torch.float32),
+                    "last": key_hash.new_full((), -1.0, dtype=torch.float32),
+                    "ok": torch.ones_like(key_hash)}
+
+        @actor_method(args={"v": (torch.float32, ())})
+        def on_next(state, args):
+            good = (args["v"] > state["last"]).to(torch.int32)
+            return {"events": state["events"] + 1,
+                    "total": state["total"] + args["v"], "last": args["v"],
+                    "ok": state["ok"] * good}, state["events"]
+
+    return RewindVec
+
+
+def sensor_class():
+    from orleans_tpu_torch.dispatch import VectorGrain, actor_method
+    from orleans_tpu_torch.streams import implicit_stream_subscription
+
+    @implicit_stream_subscription("telemetry")
+    class SensorVec(VectorGrain):
+        """The persistent provider's vector consumer of
+        tests/test_vector_streams.py: one row per sensor key."""
+
+        STATE = {"events": (torch.int32, ()), "total": (torch.float32, ())}
+
+        @staticmethod
+        def initial_state(key_hash):
+            return {"events": torch.zeros_like(key_hash),
+                    "total": key_hash.new_zeros((), dtype=torch.float32)}
+
+        @actor_method(args={"v": (torch.float32, ())})
+        def on_next(state, args):
+            new = {"events": state["events"] + 1,
+                   "total": state["total"] + args["v"]}
+            return new, new["events"]
+
+    return SensorVec
+
+
+def dense_rows(silos, cls, n) -> dict:
+    """Each field of ``cls`` as a host array over keys 0..n-1, summed over
+    the silos (a dense row nobody owns stays zero), and which silo holds
+    each key's activated row (-1 for none, -2 for more than one)."""
+    out, where = {}, np.full(n, -1, np.int64)
+    for i, s in enumerate(silos):
+        tbl = s.vector.table(cls)
+        per = tbl.dense_per_shard
+        for f, v in tbl.state.items():
+            rows = v[:, :per].reshape(-1)[:n].cpu().numpy()
+            out[f] = out[f] + rows if f in out else rows.copy()
+        active = tbl.dense_active[:n]
+        where = np.where(active, np.where(where == -1, i, -2), where)
+    out["silo"] = where
+    return out
+
+
+async def await_count(read, target, label, timeout=300.0, step=0.002):
+    """Poll ``read()`` until it reaches ``target``; fail after ``timeout``
+    seconds."""
+    deadline = time.perf_counter() + timeout
+    while read() < target:
+        assert time.perf_counter() < deadline, \
+            f"{label}: {read()} of {target} after {timeout} s"
+        await asyncio.sleep(step)
+
+
+def drive_streams(dev, n_subs, profile=None):
+    """Phase J's device-stream traffic on two port silos of one
+    InProcFabric (8 shards each, on ``dev``), through
+    ``DeviceStreamProvider``: ``subscribe_keys`` of all ``n_subs``
+    FanVec rows, a rewound subscription of ``J_REWIND`` RewindVec rows
+    from token 1 (armed before any publish, so its catch-up cursor must
+    skip the warm batch and replay 1-3 exactly), one warm publish, then
+    3 publishes of ``{"v": e + 1}`` (the last inside ``profile()`` when
+    given). Checks every count exactly and returns (rows, stats)."""
+    from orleans_tpu_torch.core.ids import GrainCategory, GrainId, GrainType
+    from orleans_tpu_torch.dispatch import add_vector_grains
+    from orleans_tpu_torch.parallel import make_mesh
+    from orleans_tpu_torch.runtime import InProcFabric, SiloBuilder
+    from orleans_tpu_torch.streams import StreamId, add_device_streams
+    Fan, Rewind = fan_class(), rewind_class()
+    rkeys = np.arange(J_REWIND, dtype=np.int64) * (n_subs // J_REWIND)
+    st: dict = {}
+
+    async def run():
+        fabric = InProcFabric()
+        silos = []
+        for i in range(2):
+            b = SiloBuilder().with_name(f"phase-j-{i}").with_fabric(fabric)
+            add_vector_grains(b, Fan, Rewind, mesh=make_mesh(SHARDS_B, dev),
+                              capacity_per_shard=-(-n_subs // SHARDS_B),
+                              dense={Fan: n_subs, Rewind: n_subs})
+            add_device_streams(b, "device")
+            silos.append(b.build())
+        started = []
+        try:
+            for s in silos:
+                await s.start()
+                started.append(s)
+            provider = silos[0].stream_providers["device"]
+            stats = silos[0].stats
+            delivered = lambda: stats.get("streams.device.delivered")  # noqa: E731
+            stream = StreamId("device", "celebrity", "post")
+            t0 = time.perf_counter()
+            await provider.subscribe_keys("celebrity", Fan, np.arange(n_subs))
+            rew = await provider.subscribe_keys("celebrity", Rewind, rkeys,
+                                                from_token=1)
+            assert not rew.live
+            assert await provider.produce(stream, [{"v": np.float32(0.5)}]) == 0
+            await await_count(delivered, n_subs, "Phase J warm publish")
+            st["subscribe_s"] = time.perf_counter() - t0
+            grp = provider._namespaces["celebrity"].groups[("FanVec",
+                                                            "on_next")]
+            st["parts"] = {str(a): int(e.size) for a, e in grp.parts.items()}
+            st["chunks"] = sum(-(-int(e.size) // provider.chunk)
+                               for e in grp.parts.values())
+            t0 = time.perf_counter()
+            for e in range(2):
+                await provider.produce(stream, [{"v": np.float32(e + 1)}])
+            target = 3 * n_subs + 2 * J_REWIND
+            await await_count(delivered, target, "Phase J publishes 1-2")
+            st["timed_s"] = time.perf_counter() - t0
+            st["timed_deliveries"] = target - n_subs
+            ctx = profile() if profile is not None else None
+            if ctx is not None:
+                ctx.__enter__()
+            t0 = time.perf_counter()
+            await provider.produce(stream, [{"v": np.float32(3.0)}])
+            await await_count(delivered, 4 * n_subs + 3 * J_REWIND,
+                              "Phase J publish 3")
+            st["last_s"] = time.perf_counter() - t0
+            if ctx is not None:
+                ctx.__exit__(None, None, None)
+            deadline = time.perf_counter() + 30
+            while not rew.live:  # caught up: merged into the fused list
+                assert time.perf_counter() < deadline, "rewind never merged"
+                await asyncio.sleep(0.01)
+            st["delivered"] = delivered()
+            st["produced"] = stats.get("streams.device.produced")
+            st["dropped"] = sum(s.stats.get(k) for s in silos for k in (
+                "streams.device.delivery_errors",
+                "streams.device.signals_dropped"))
+            fan = dense_rows(silos, Fan, n_subs)
+            rew_rows = dense_rows(silos, Rewind, n_subs)
+            # every row on its ring owner: the GrainId hash of the key,
+            # built as GrainId.for_grain builds it, without interning
+            ring = silos[0].locator.ring
+            idx = {s.silo_address: i for i, s in enumerate(silos)}
+
+            def owners(cls, keys):
+                tc = GrainType.of(cls.__name__).type_code
+                return np.fromiter(
+                    (idx[ring.owner(GrainId(GrainCategory.GRAIN, tc, int(k))
+                                    .uniform_hash)] for k in keys),
+                    np.int64, len(keys))
+            t0 = time.perf_counter()
+            owner = owners(Fan, range(n_subs))
+            st["owner_check_s"] = time.perf_counter() - t0
+            return fan, rew_rows, owner, owners(Rewind, rkeys)
+        finally:
+            for s in started:
+                await s.stop()
+
+    fan, rew, owner, rew_owner = asyncio.run(run())
+    assert (fan["events"] == 4).all(), "Phase J: a subscriber missed events"
+    assert (fan["last"] == 3.0).all(), "Phase J: a subscriber's last event"
+    assert (fan["silo"] == owner).all(), "Phase J: a row off its ring owner"
+    mask = np.zeros(n_subs, bool)
+    mask[rkeys] = True
+    assert (rew["events"][mask] == 3).all() and (rew["ok"][mask] == 1).all()
+    assert (rew["total"][mask] == 6.0).all() and (rew["last"][mask] == 3.0
+                                                   ).all()
+    assert (rew["events"][~mask] == 0).all() and (rew["silo"][~mask] == -1
+                                                   ).all()
+    assert (rew["silo"][rkeys] == rew_owner).all()
+    assert st["produced"] == 4 and st["dropped"] == 0
+    assert st["delivered"] == 4 * n_subs + 3 * J_REWIND == \
+        int(fan["events"].sum() + rew["events"].sum())
+    return {"fan": fan, "rewind": rew}, st
+
+
+def drive_persistent(dev, n, fanout: bool, items: int = 4):
+    """The persistent provider's vector path: one silo (8 shards on
+    ``dev``) with ``add_persistent_streams`` over a ``MemoryQueueAdapter``
+    and the implicitly subscribed SensorVec; one warm bulk item of ``n``
+    events, then ``items`` more in one produce, each ``{"keys":
+    arange(n), "args": {"v": key % 7}}``. ``fanout`` arms
+    ``StreamOptions(device_fanout=True)``, so the items ride
+    ``stream_fanout`` (K2 on every chunk) instead of ``call_batch``.
+    Checks every row exactly; returns (rows, events/sec)."""
+    from orleans_tpu_torch.config import StreamOptions
+    from orleans_tpu_torch.dispatch import add_vector_grains
+    from orleans_tpu_torch.parallel import make_mesh
+    from orleans_tpu_torch.runtime import InProcFabric, SiloBuilder
+    from orleans_tpu_torch.streams import (MemoryQueueAdapter, StreamId,
+                                           add_persistent_streams)
+    Sensor = sensor_class()
+    v = (np.arange(n) % 7).astype(np.float32)
+    item = {"keys": np.arange(n), "args": {"v": v}}
+
+    async def run():
+        b = (SiloBuilder().with_name("phase-j-queue")
+             .with_fabric(InProcFabric())
+             .with_options(StreamOptions(device_fanout=fanout)))
+        add_vector_grains(b, Sensor, mesh=make_mesh(SHARDS_B, dev),
+                          capacity_per_shard=-(-n // SHARDS_B),
+                          dense={Sensor: n})
+        add_persistent_streams(b, "queue", MemoryQueueAdapter(n_queues=1),
+                               pull_period=0.005)
+        silo = b.build()
+        await silo.start()
+        try:
+            provider = silo.stream_providers["queue"]
+            stream = StreamId("queue", "telemetry", "bulk")
+            got = lambda: silo.stats.get("streams.vector.delivered")  # noqa: E731
+            await provider.produce(stream, [item])
+            await await_count(got, n, "Phase J persistent warm item")
+            t0 = time.perf_counter()
+            await provider.produce(stream, [item] * items)
+            await await_count(got, (1 + items) * n, "Phase J persistent")
+            rate = items * n / (time.perf_counter() - t0)
+            return dense_rows([silo], Sensor, n), rate
+        finally:
+            await silo.stop()
+
+    rows, rate = asyncio.run(run())
+    assert (rows["events"] == 1 + items).all(), "Phase J persistent events"
+    assert (rows["total"] == (1 + items) * v).all(), "Phase J persistent total"
+    return rows, rate
+
+
+def phase_j(dev, card):
+    """Phase J: the celebrity fan-out of benchmarks/gauntlet.py through the
+    port's DeviceStreamProvider at 1,048,576 subscribers over 8 shards on
+    two silos, and the persistent provider's vector path with bulk items
+    of 1,048,576 events; returns the kernels' launch counts of both."""
+    from orleans_tpu_torch.ops import KERNELS, RANK_BY_DEST
+    windows = []
+
+    def profile():
+        windows.append(DeviceWindow())
+        return windows[-1]
+
+    t0 = time.perf_counter()
+    _, st = drive_streams(dev, N_J, profile)
+    k2_streams = RANK_BY_DEST.launches
+    off_rows, off_rate = drive_persistent(dev, N_J, fanout=False)
+    on_rows, on_rate = drive_persistent(dev, N_J, fanout=True)
+    for f in off_rows:
+        assert np.array_equal(off_rows[f], on_rows[f]), \
+            f"Phase J persistent: the fan-out lever changed field {f}"
+    launched = {k.name: k.launches for k in KERNELS}
+    wall = time.perf_counter() - t0
+    w = windows[0]
+    print(f"Phase J: device streams, {N_J} subscribers x {SHARDS_B} shards "
+          f"on 2 silos (parts {sorted(st['parts'].values())}, "
+          f"{st['chunks']} delivery chunks a publish), on {card}; "
+          f"{wall:.3f} s in all")
+    print(f"  subscribe_keys + the first delivery (ownership partition "
+          f"included): {st['subscribe_s']:.3f} s on {card}")
+    print(f"  publishes 1-2: {st['timed_deliveries']} deliveries in "
+          f"{st['timed_s']:.3f} s, "
+          f"{st['timed_deliveries'] / st['timed_s']:.0f} deliveries/sec "
+          f"on {card}")
+    print(f"  publish 3 profiled: {w.wall_ms:.3f} ms wall for "
+          f"{st['chunks']} chunks ({w.wall_ms / st['chunks']:.3f} ms/chunk), "
+          f"device busy {w.busy_ms:.4f} ms "
+          f"({w.busy_ms / st['chunks']:.4f} ms/chunk, idle share "
+          f"{max(0.0, 1 - w.busy_ms / w.wall_ms):.4f}) on {card}")
+    print(f"  rewound subscription: {J_REWIND} keys from token 1 heard "
+          f"tokens 1-3 exactly once, in order; every row on its ring "
+          f"owner (checked in {st['owner_check_s']:.3f} s); delivered "
+          f"{st['delivered']} = 4 x {N_J} + 3 x {J_REWIND}, dropped "
+          f"{st['dropped']}")
+    print(f"  persistent provider, bulk items of {N_J} events: "
+          f"{off_rate:.0f} events/sec through call_batch, {on_rate:.0f} "
+          f"events/sec through stream_fanout (device_fanout on), the same "
+          f"rows either way, on {card}")
+    print(f"  K2 launches: {k2_streams} in the device streams, "
+          f"{launched[RANK_BY_DEST.name]} with the persistent path")
+    k2 = [(t, c) for k, (t, c) in w.kernels.items()
+          if "rank_by_dest_kernel" in k]
+    print(f"  K2 in the profiled publish: {sum(c for _, c in k2):g} "
+          f"launches, {sum(t for t, _ in k2) / max(1, sum(c for _, c in k2)):.6f}"
+          f" ms device each on {card}")
+    # K2 alone at a delivery chunk's shape (these launches come after the
+    # phase's count was read)
+    from orleans_tpu_torch.ops import rank_by_dest, rank_by_dest_ref
+    label, g = j_chunk_dests(dev)[0]
+
+    def k2_call():
+        return rank_by_dest(g, SHARDS_B + 1)
+
+    k2 = [(t, c) for k, (t, c) in device_profile(k2_call).items()
+          if "rank_by_dest_kernel" in k]
+    seen = sum(c for _, c in k2)
+    print(f"  K2 at the {label} shape {tuple(g.shape)}: wrapper "
+          f"{time_ms(k2_call):.4f} ms (CUDA events), device "
+          f"{sum(t for t, _ in k2) / max(seen, 1e-9):.6f} ms a launch "
+          f"(the profile kept {seen:g} launches a call), plain "
+          f"{time_ms(lambda: rank_by_dest_ref(g, SHARDS_B + 1), iters=5):.4f}"
+          f" ms, bound {g.nbytes * 2 / HBM_BYTES_PER_S * 1e3:.6f} ms "
+          f"(bytes) on {card}")
+    return launched
+
+
+def phase_j_cpu(dev):
+    """Phase J's scenario at N_J_CPU subscribers on the card and on the
+    CPU: every row (summed over the two silos) and every persistent row
+    equal."""
+    cpu = torch.device("cpu")
+    got = [drive_streams(d, N_J_CPU)[0] for d in (dev, cpu)]
+    for cls in ("fan", "rewind"):
+        for f, a in got[0][cls].items():
+            if f == "silo":  # each run has its own ring of silo addresses
+                continue
+            b = got[1][cls][f]
+            assert a.dtype == b.dtype and np.array_equal(a, b), \
+                f"Phase J {cls}.{f}: card != CPU"
+    for fanout in (False, True):
+        a, _ = drive_persistent(dev, N_J_CPU, fanout)
+        b, _ = drive_persistent(cpu, N_J_CPU, fanout)
+        for f in a:
+            assert np.array_equal(a[f], b[f]), f"Phase J persistent {f}"
+    print(f"Phase J: the same scenario at {N_J_CPU} subscribers, card == "
+          f"CPU, exactly (every row of both providers' paths)")
 
 
 def main() -> int:
@@ -1317,10 +1745,19 @@ def main() -> int:
         assert count > 0, f"kernel {name} was not launched in Phase H"
     phase_i(dev)
     print(f"Phases H and I: {time.perf_counter() - t_hi:.3f} s")
+    # Phase J: device streams; every delivery chunk ranks through K2
+    for k in KERNELS:
+        k.launches = 0
+    t_j = time.perf_counter()
+    launches_j = phase_j(dev, card)
+    assert launches_j[RANK_BY_DEST.name] > 0, "K2 not launched in Phase J"
+    phase_j_cpu(dev)
+    print(f"Phase J with its CPU comparison: "
+          f"{time.perf_counter() - t_j:.3f} s")
     print(f"launches on the main path: A-C {launches}, E {launches_e}, "
-          f"G {launches_g}, H {launches_h}")
+          f"G {launches_g}, H {launches_h}, J {launches_j}")
     launches = {name: launches[name] + launches_e[name] + launches_g[name]
-                + launches_h[name] for name in launches}
+                + launches_h[name] + launches_j[name] for name in launches}
 
     sources = {SEGMENT_SUM.name: ("orleans_tpu/ops/segment_reduce.py:87",
                                   "orleans_tpu_torch/ops/csrc/segment_sum.cu"),

@@ -30,9 +30,11 @@ class TransientPlacementError(OrleansError):
     hard error."""
 
 
-class ConfigurationError(OrleansError):
+class ConfigurationError(OrleansError, ValueError):
     """Invalid options rejected by a validator
-    (``OrleansConfigurationException``, Core/Configuration/Validators/)."""
+    (``OrleansConfigurationException``, Core/Configuration/Validators/).
+    Also a ``ValueError`` in the port: ``DispatchOptions.validate`` raised
+    a plain ``ValueError`` subclass before the options groups came."""
 
 
 class SiloUnavailableError(OrleansError):

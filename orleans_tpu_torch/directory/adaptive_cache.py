@@ -14,7 +14,9 @@ that), and the maintainer refreshes entries that were ACCESSED since the
 last sweep and are expired or expiring within one period — cold entries
 cost nothing until traffic returns.
 
-The port's copy of ``orleans_tpu.directory.adaptive_cache``.
+The port's copy of ``orleans_tpu.directory.adaptive_cache``, with one
+repair: the bounded set of accessed marks drops one mark at its bound,
+where the reference's clears them all.
 """
 
 from __future__ import annotations
@@ -74,11 +76,12 @@ class AdaptiveDirectoryCache:
             return None
         # bounded even when no maintainer drains it (refresh period 0):
         # distinct-gid traffic must not grow the set past the cache
-        # itself. Clear only when a NEW gid would exceed the bound — a
-        # steady-state working set of exactly `size` hot gids must keep
-        # its marks or the maintainer would never see them at sweep time
+        # itself. A NEW gid at the bound evicts one mark, not all: the
+        # reference's copy cleared the set here, so one extra gid dropped
+        # the marks of the whole hot working set and a sweep racing it
+        # demoted hot entries for a refresh cycle
         if gid not in self._accessed and len(self._accessed) >= self.size:
-            self._accessed.clear()
+            self._accessed.pop()
         self._accessed.add(gid)
         if self.clock() >= e.expires:
             self.expired_hits += 1

@@ -209,8 +209,17 @@ def add_vector_grains(builder, *grain_classes: type[VectorGrain],
             return n
 
         async def flusher() -> None:
+            # cooperative shutdown, as the checkpoint snapshotter's: a
+            # flush yields to the loop between slices, so a cancel would
+            # land mid-flush and the final drain would write its rows
+            # again; stop() sets `quit` and awaits the flush in flight
             while True:
-                await asyncio.sleep(flush_period)
+                try:
+                    await asyncio.wait_for(state["quit"].wait(),
+                                           timeout=flush_period)
+                    return  # graceful stop requested
+                except asyncio.TimeoutError:
+                    pass
                 if silo.status in ("Dead", "Stopped"):
                     return  # kill skips lifecycle stops; die with the silo
                 try:
@@ -221,16 +230,15 @@ def add_vector_grains(builder, *grain_classes: type[VectorGrain],
                         "write-behind flush failed")
 
         def start() -> None:
+            state["quit"] = asyncio.Event()
             state["task"] = asyncio.get_running_loop().create_task(flusher())
 
         async def stop() -> None:
             task, state["task"] = state["task"], None
             if task is not None:
-                task.cancel()
-                # await the cancelled flusher so its BaseException re-mark
-                # lands BEFORE the final drain below — otherwise keys a
-                # mid-flight flush had already drained would be re-marked
-                # after stop's pass and silently never persisted
+                state["quit"].set()
+                # the flush in flight completes (or re-marks what it
+                # drained on failure) BEFORE the final drain below
                 await asyncio.gather(task, return_exceptions=True)
             # final write-behind drain: strict — a failure here has no
             # next period to retry, so it must surface out of stop()

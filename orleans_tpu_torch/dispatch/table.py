@@ -62,10 +62,10 @@ class ShardedActorTable:
         # padded buckets (also po2) slice the pool contiguously
         self.capacity = 1 << (int(capacity_per_shard) - 1).bit_length()
         self.methods = vector_methods(grain_class)
-        # tick-serialization fence: grow, read_row, snapshot/restore and
-        # the counters take it, so they never interleave with a batch of
-        # the engine's off-loop worker; VectorRuntime.register replaces it
-        # with the engine's own lock
+        # tick-serialization fence: grow, move_rows, read_row,
+        # snapshot/restore and the counters take it, so they never
+        # interleave with a batch of the engine's off-loop worker;
+        # VectorRuntime.register replaces it with the engine's own lock
         self.fence = threading.RLock()
         self.key_to_slot: dict[int, tuple[int, int]] = {}
         self.device_dir = DeviceDirectory64(device=self.device)
@@ -78,6 +78,10 @@ class ShardedActorTable:
         self.dense_n = 0  # keys [0, dense_n) are dense-mapped
         self.dense_per_shard = 0
         self.dense_active = np.zeros(0, dtype=bool)
+        # called with the keys of a bulk tick before their fresh mask is
+        # read (a storage bridge's VectorStorageBridge.rehydrate); None
+        # without write-behind storage
+        self.rehydrate = None
         self.state: dict[str, torch.Tensor] = {
             name: self._zeros(name, self.capacity)
             for name in grain_class.STATE}
@@ -206,6 +210,8 @@ class ShardedActorTable:
         key is already active."""
         if self.dense_active.size == 0:
             return None
+        if self.rehydrate is not None:
+            self.rehydrate(keys)
         m = ~self.dense_active[keys]
         return m if m.any() else None
 
@@ -252,6 +258,77 @@ class ShardedActorTable:
         self.device_dir.remove(key_hash)
         self.route_hash.pop(key_hash, None)
         return True
+
+    def move_rows(self, keys, dest_shards) -> int:
+        """Live-migrate hashed rows to other shards under the fence: a
+        move reads and replaces ``state``, which must not interleave with
+        a batch of the off-loop worker. Keeping pending or in-flight calls
+        off a moving key stays the caller's job
+        (``VectorRuntime.pending_key_hashes``)."""
+        with self.fence:
+            return self._move_rows(keys, dest_shards)
+
+    def _move_rows(self, keys, dest_shards) -> int:
+        """Move each resident hashed key to a freshly allocated slot on
+        its destination shard: copy its state row and its hit and cost
+        counters there, zero the counters it left, then re-point the host
+        maps and the on-device directory. Keys not resident, already on
+        their destination, repeated, or whose destination has no free
+        slot are skipped (a move never grows the pool). Returns the rows
+        moved.
+
+        The copy writes into clones and swaps them in at one commit
+        point, so the live pools stay the rollback snapshot until then:
+        a failure before the commit leaves state, counters, free lists
+        and directory as they were."""
+        src_sh, src_sl, dst_sh, dst_sl, moved_keys = [], [], [], [], []
+        taken: dict[int, int] = {}  # dest shard -> slots claimed this call
+        seen: set[int] = set()
+        for key, dest in zip(keys, dest_shards):
+            key, dest = int(key), int(dest)
+            loc = self.key_to_slot.get(key)
+            if key in seen or loc is None or loc[0] == dest or \
+                    not (0 <= dest < self.n_shards):
+                continue
+            seen.add(key)
+            n_taken = taken.get(dest, 0)
+            if n_taken >= len(self.free[dest]):
+                continue  # destination full: skip, never grow mid-move
+            taken[dest] = n_taken + 1
+            src_sh.append(loc[0])
+            src_sl.append(loc[1])
+            dst_sh.append(dest)
+            # peek (no pop): a failure below leaves the free lists intact
+            dst_sl.append(self.free[dest][-1 - n_taken])
+            moved_keys.append(key)
+        if not moved_keys:
+            return 0
+        src = (torch.tensor(src_sh, device=self.device),
+               torch.tensor(src_sl, device=self.device))
+        dst = (torch.tensor(dst_sh, device=self.device),
+               torch.tensor(dst_sl, device=self.device))
+
+        def moved(arr: torch.Tensor, zero_source: bool) -> torch.Tensor:
+            out = arr.clone()
+            out[dst] = arr[src]
+            if zero_source:
+                out[src] = 0
+            return out
+
+        new_state = {k: moved(v, False) for k, v in self.state.items()}
+        # counters travel with the row: the next view of a key's heat and
+        # cost must be at its new home, not a ghost at the old one
+        new_hits = None if self.hits is None else moved(self.hits, True)
+        new_cost = None if self.cost is None else moved(self.cost, True)
+        self.state, self.hits, self.cost = new_state, new_hits, new_cost
+        for key, s_sh, s_sl, d_sh, d_sl in zip(
+                moved_keys, src_sh, src_sl, dst_sh, dst_sl):
+            self.free[d_sh].remove(d_sl)
+            self.free[s_sh].append(s_sl)
+            self.key_to_slot[key] = (d_sh, d_sl)
+            self.device_dir.remove(key)
+            self.device_dir.insert(key, self._encode_loc(d_sh, d_sl))
+        return len(moved_keys)
 
     def note_route(self, key_hash: int, uniform_hash: int) -> None:
         """Record the routing hash of a hashed key (every entry point that

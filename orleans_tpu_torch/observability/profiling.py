@@ -604,13 +604,16 @@ def traced(name: str):
 
 class Profiler:
     """Start/stop a ``torch.profiler`` capture (host ops, and CUDA kernels
-    when the card is present); ``stop()`` writes it to
-    ``<log_dir>/trace.json``. One active capture per process; ``stop()``
-    is idempotent."""
+    when the card is present); ``stop()`` waits for the card's queued
+    work, so every kernel launched in the window is in the capture, then
+    writes it to ``<log_dir>/trace.json`` and keeps the finished profile
+    as ``last`` (``last.key_averages()`` sums it by op and kernel). One
+    active capture per process; ``stop()`` is idempotent."""
 
     def __init__(self) -> None:
         self.active_dir: str | None = None
         self._prof = None
+        self.last = None
 
     def start(self, log_dir: str) -> None:
         if self.active_dir is not None:
@@ -627,7 +630,10 @@ class Profiler:
         if self.active_dir is None:
             return None
         prof, self._prof = self._prof, None
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
         prof.__exit__(None, None, None)
+        self.last = prof
         out, self.active_dir = self.active_dir, None
         os.makedirs(out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out, "trace.json"))

@@ -71,11 +71,15 @@ UNPORTED_OPTIONS = (
 def refuse_unported(config: "SiloConfig", registry: "GrainRegistry") -> None:
     """Raise NotImplementedError for an option or grain class that needs a
     module the port does not hold yet."""
+    from ..config import _FLAT_MAP
+
     for name, is_set, module, item in UNPORTED_OPTIONS:
         value = getattr(config, name)
         if is_set(value):
+            group, field = _FLAT_MAP[name]
             raise NotImplementedError(
-                f"SiloConfig.{name}={value!r} needs {module}, which "
+                f"SiloConfig.{name}={value!r} (config.py's "
+                f"{group.__name__}.{field}) needs {module}, which "
                 f"orleans_tpu_torch does not port yet (ROADMAP Queue 1 "
                 f"item {item})")
     for cls in registry.all_classes():
@@ -1399,10 +1403,10 @@ class SiloBuilder:
         """Typed options groups (the ``.Configure<XOptions>(...)`` idiom):
         ``builder.with_options(MessagingOptions(response_timeout=5))`` —
         validates each group, then overlays it on the flat config."""
-        raise NotImplementedError(
-            "typed options groups need config.py's groups, which "
-            "orleans_tpu_torch does not port yet (ROADMAP Queue 1 item 18); "
-            "use with_config")
+        from ..config import apply_options
+
+        apply_options(self.config, *groups)
+        return self
 
     def add_grains(self, *grain_classes: type) -> "SiloBuilder":
         self.registry.register(*grain_classes)

@@ -25,6 +25,17 @@ to a temporary directory beside it and is moved into place with
 under the tick fence. ``restore`` also rebuilds the on-device directory
 of hashed keys and the hit/cost counters at the restored capacity, which
 the JAX package's restore leaves as they were.
+
+Two more departures from the JAX package, both repairs. A write-behind
+flush writes ``FLUSH_SLICE`` rows at a time and yields to the event loop
+between slices, so a flush of a million rows no longer holds the loop
+(and every response timeout) for its whole length. And a dense row
+released after an etag conflict keeps the stored state and etag read at
+the conflict, which the bulk paths (``call_batch``, ``call_batch_rounds``,
+``broadcast_actors``) write back before they would fresh-init the key:
+the reference rebuilds such a row from storage only on the routed path,
+so a bulk call started it from ``initial_state`` and the next flush
+overwrote the newer stored state.
 """
 
 from __future__ import annotations
@@ -53,6 +64,8 @@ __all__ = ["VectorCheckpointer", "VectorStorageBridge"]
 
 _STATE_FILE = "state.pt"
 _META_FILE = "meta.json"
+# rows a write-behind flush writes between two yields to the event loop
+FLUSH_SLICE = 1024
 
 
 class _ConflictReleased(Exception):
@@ -247,6 +260,11 @@ class VectorStorageBridge:
         self.grain_type = grain_class.__name__
         self._etags: dict[int, str | None] = {}
         self.storage_conflicts = 0
+        # dense keys released after an etag conflict -> the (state, etag)
+        # storage held then; the bulk paths' fresh mask writes them back
+        # (rehydrate) instead of fresh-initializing the key
+        self._released: dict[int, tuple[dict, str | None]] = {}
+        runtime.table(grain_class).rehydrate = self.rehydrate
 
     def _grain_id(self, key: int) -> GrainId:
         return GrainId.for_grain(GrainType.of(self.grain_type), int(key))
@@ -257,6 +275,12 @@ class VectorStorageBridge:
         activation slot raise KeyError, or are dropped with a log when
         ``drop_missing`` (a released slot has no row left to persist)."""
         tbl = self.runtime.table(self.grain_class)
+        arr = np.asarray(keys, dtype=np.int64).reshape(-1)
+        if tbl.dense_n and arr.size and arr.min() >= 0 \
+                and arr.max() < tbl.dense_n:
+            # all dense: the mapping is arithmetic, no per-key Python
+            shards, slots = tbl.dense_shard_slot(arr)
+            return arr.tolist(), shards, slots
         kept, shards, slots = [], [], []
         for k in keys:
             k = int(k)
@@ -278,7 +302,9 @@ class VectorStorageBridge:
 
     async def flush(self, keys: Iterable[int], strict: bool = False) -> int:
         """Write-behind: persist the current device rows for ``keys``.
-        One batched device→host gather, then per-actor etag'd writes.
+        One batched device→host gather, then per-actor etag'd writes,
+        ``FLUSH_SLICE`` at a time with a yield to the event loop between
+        slices (other turns and responses run while a large flush does).
 
         Per-key failure isolation: keys whose activation slot is gone
         (released) are dropped with a log — there is no row left to
@@ -287,7 +313,8 @@ class VectorStorageBridge:
         whole class. Failures re-raise (after re-marking) when ``strict``
         is set OR when the runtime has no dirty tracking to hold the
         retry — a standalone bridge must never report silent success."""
-        keys = [int(k) for k in keys]
+        keys = keys.tolist() if isinstance(keys, np.ndarray) \
+            else [int(k) for k in keys]
         if not keys:
             return 0
         tbl = self.runtime.table(self.grain_class)
@@ -332,6 +359,14 @@ class VectorStorageBridge:
                 self._etags.pop(key, None)
                 if 0 <= key < tbl.dense_n:
                     tbl.dense_active[key] = False
+                    # what the routed path would rebuild from: the bulk
+                    # paths, which cannot await a read, write it back
+                    # with its etag (a later write by the new owner
+                    # still conflicts, so nothing newer is overwritten)
+                    stored, stored_etag = await self.storage.read(
+                        self.grain_type, self._grain_id(key))
+                    if stored is not None:
+                        self._released[key] = (stored, stored_etag)
                 else:
                     tbl.release(key)
                 logging.getLogger("orleans.vector").info(
@@ -340,9 +375,13 @@ class VectorStorageBridge:
                 raise _ConflictReleased(key) from None
             self._etags[key] = etag
 
-        results = await asyncio.gather(
-            *(write_one(i, k) for i, k in enumerate(kept)),
-            return_exceptions=True)
+        results = []
+        for start in range(0, len(kept), FLUSH_SLICE):
+            await asyncio.sleep(0)  # after the gather too: it is a slice
+            results += await asyncio.gather(
+                *(write_one(i, kept[i])
+                  for i in range(start, min(start + FLUSH_SLICE, len(kept)))),
+                return_exceptions=True)
         conflicts = [r.key for r in results
                      if isinstance(r, _ConflictReleased)]
         failed = [k for k, r in zip(kept, results)
@@ -383,6 +422,7 @@ class VectorStorageBridge:
             return []
         for k, _, e in found:
             self._etags[k] = e
+            self._released.pop(k, None)
         fkeys = [k for k, _, _ in found]
         # claim slots for hashed keys that have no activation yet, and
         # record their routing hash (ownership sweeps need it for rows
@@ -396,16 +436,41 @@ class VectorStorageBridge:
             dense = [k for k in fkeys if 0 <= k < tbl.dense_n]
             if dense:
                 tbl.dense_active[np.asarray(dense, int)] = True
-        _, shards, slots = self._locate(fkeys)
-        # under the tick fence: an off-loop tick writes the same pools in
-        # place, and must see either none or all of the rehydrated rows
+        self._write_rows(fkeys, [s for _, s, _ in found])
+        return fkeys
+
+    def _write_rows(self, keys: list[int], states: list[dict]) -> None:
+        """Write stored records into the keys' rows with one in-place
+        ``index_put_`` a field, under the tick fence: an off-loop tick
+        writes the same pools, and must see none or all of the rows."""
+        tbl = self.runtime.table(self.grain_class)
+        _, shards, slots = self._locate(keys)
         with self.runtime.tick_fence():
             sh = torch.from_numpy(shards).to(tbl.device)
             sl = torch.from_numpy(slots).to(tbl.device)
             for f, arr in tbl.state.items():
                 dtype, _ = tbl.grain_class.STATE[f]
                 vals = np.stack([np.asarray(s[f], numpy_dtype(dtype))
-                                 for _, s, _ in found])
+                                 for s in states])
                 arr.index_put_((sh, sl),
                                torch.from_numpy(vals).to(arr.device))
-        return fkeys
+
+    def rehydrate(self, keys: np.ndarray) -> None:
+        """The table's hook before a bulk path fresh-initializes dense
+        ``keys``: rows released after an etag conflict get back the
+        stored state (and etag) read at the conflict, and count as
+        active, so the bulk tick continues them instead of starting over
+        from ``initial_state``."""
+        if not self._released:
+            return
+        rel = np.fromiter(self._released, np.int64, len(self._released))
+        back = rel[np.isin(rel, np.asarray(keys))].tolist()
+        if not back:
+            return
+        states = []
+        for k in back:
+            state, etag = self._released.pop(k)
+            self._etags[k] = etag
+            states.append(state)
+        self._write_rows(back, states)
+        self.runtime.table(self.grain_class).dense_active[back] = True

@@ -51,6 +51,7 @@ from orleans_tpu_torch.runtime import (  # noqa: E402
 from orleans_tpu_torch.storage import MemoryStorage  # noqa: E402
 
 N_GAMES = 64
+STALL_S = 0.02  # a gap between two event-loop wake-ups counted as a stall
 
 
 class PlayerVectorGrain(VectorGrain):
@@ -241,11 +242,15 @@ async def drive_presence(build, client_cls, storage, player, game, sched,
     final checkpoint), a silo that restores the checkpoint (its table
     must equal the pre-stop table bit for bit), and a storage-only silo
     that reloads ``sched.sample`` through its bridge and calls each key
-    again. ``profile()``, when given, returns a context manager wrapped
-    around the last batch of (2). The stats give each step's wall time
-    and the part of it that write-behind flushes held the loop
-    (``<step>_flush_s``), and the seconds of each ``call_batch`` batch
-    and each summary that no flush overlapped (``batch_clear_s``,
+    again. ``profile(step)``, when given, returns a context manager
+    wrapped around the last batch of (2) (``step`` "batch") and the last
+    summary of (5) ("summary"). The stats give each step's wall time, the
+    part of it that write-behind flushes overlapped (``<step>_flush_s``),
+    the event loop's stalls longer than ``STALL_S`` within it (their sum
+    ``<step>_stalled_s`` and the longest, ``<step>_stall_s``; a flush
+    yields to the loop between slices, so it stalls the loop a slice at
+    a time), and the seconds of each ``call_batch`` batch and each
+    summary that no flush overlapped (``batch_clear_s``,
     ``summary_clear_s``)."""
     n = sched.n
     model = PresenceModel(n)
@@ -254,17 +259,18 @@ async def drive_presence(build, client_cls, storage, player, game, sched,
     clock = time.perf_counter
     silo = build(storage, checkpoint_dir)
     bridge = silo.vector_bridges[player]
-    flushes: list = []  # (rows, start, end, in the final drain)
+    flushes: list = []  # (rows, start, end, started by silo.stop())
     steps: dict = {}  # step -> (start, end)
     batches: list = []  # (start, end) of each client.call_batch batch
     summaries: list = []  # (start, end) of each summary call
     stopping = [False]
+    stalls: list = []  # (start, end) of each event-loop stall
     flush = bridge.flush
 
     async def timed_flush(keys, strict=False):
-        t0 = clock()
+        t0, final = clock(), stopping[0]
         done = await flush(keys, strict=strict)
-        flushes.append((done, t0, clock(), stopping[0]))
+        flushes.append((done, t0, clock(), final))
         return done
     bridge.flush = timed_flush
     ckpt = silo.vector_checkpointer
@@ -277,8 +283,18 @@ async def drive_presence(build, client_cls, storage, player, game, sched,
         saves.append(clock() - t0)
     ckpt.save = timed_save
 
+    async def watch_loop():
+        last = clock()
+        while True:
+            await asyncio.sleep(STALL_S / 4)
+            now = clock()
+            if now - last > STALL_S:
+                stalls.append((last, now))
+            last = now
+
     await silo.start()
     client = await client_cls(silo.fabric).connect()
+    watcher = asyncio.get_running_loop().create_task(watch_loop())
     try:
         rt = silo.vector
         # (1) bulk waves
@@ -302,8 +318,8 @@ async def drive_presence(build, client_cls, storage, player, game, sched,
             hi = lo + sched.batch
             calls = [(int(k), {"pos": p, "delta": d})
                      for k, p, d in zip(ks[lo:hi], ps[lo:hi], ds[lo:hi])]
-            ctx = profile() if profile is not None and hi >= ks.size \
-                else nullcontext()
+            ctx = profile("batch") if profile is not None \
+                and hi >= ks.size else nullcontext()
             with ctx:
                 tb = clock()
                 got += await asyncio.gather(
@@ -354,9 +370,12 @@ async def drive_presence(build, client_cls, storage, player, game, sched,
         got = []
         t0 = clock()
         for g in range(N_GAMES):
-            tb = clock()
-            s = await client.get_grain(game, g).summary()
-            summaries.append((tb, clock()))
+            ctx = profile("summary") if profile is not None \
+                and g == N_GAMES - 1 else nullcontext()
+            with ctx:
+                tb = clock()
+                s = await client.get_grain(game, g).summary()
+                summaries.append((tb, clock()))
             got.append((s["total_score"], s["players"]))
         steps["summary"] = (t0, clock())
         res["summaries"] = np.asarray(got, np.int64)
@@ -369,10 +388,14 @@ async def drive_presence(build, client_cls, storage, player, game, sched,
         t0 = clock()
         await silo.stop()
         steps["stop"] = (t0, clock())
+        watcher.cancel()
     for name, (a, b) in steps.items():
         st[f"{name}_s"] = b - a
         st[f"{name}_flush_s"] = sum(max(0.0, min(b, e) - max(a, s))
                                     for _, s, e, _ in flushes)
+        held = [max(0.0, min(b, e) - max(a, s)) for s, e in stalls]
+        st[f"{name}_stalled_s"] = sum(held)
+        st[f"{name}_stall_s"] = max(held, default=0.0)
     def clear(calls):  # seconds of the calls no flush overlapped
         return [b - a for a, b in calls
                 if all(e <= a or s >= b for _, s, e, _ in flushes)]

@@ -11,6 +11,7 @@ values (decoded by the JAX package, re-encoded by the port's pickle-only
 serializer). Tolerance: exact.
 """
 
+import asyncio
 import os
 
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ import orleans_tpu.storage as js
 from orleans_tpu.parallel import make_mesh as j_mesh
 import orleans_tpu_torch.core.serialization as tser
 import orleans_tpu_torch.dispatch as td
+import orleans_tpu_torch.runtime as tr
 import orleans_tpu_torch.storage as ts
 from orleans_tpu_torch.ops import split64
 from orleans_tpu_torch.parallel import make_mesh as t_mesh
@@ -308,3 +310,80 @@ class TestVectorStorageBridge:
         out = _bump_all(rt, 16, 0.0)
         assert np.array_equal(np.asarray(out),
                               _bump_all(jrt, 16, 0.0, JCounterGrain))
+
+
+# ---------------------------------------------------------------------------
+# repairs of the copied bridge (deliberate divergences from the reference)
+# ---------------------------------------------------------------------------
+
+async def test_bulk_path_reloads_a_conflict_released_key():
+    """An etag conflict releases the row; a bulk ``call_batch`` on the key
+    must continue the state another writer stored, not restart from
+    ``initial_state`` (whose next flush would overwrite that state)."""
+    async def body():
+        storage = ts.MemoryStorage()
+        rt = td.VectorRuntime(mesh=t_mesh(1, device="cpu"),
+                              capacity_per_shard=8)
+        rt.table(TCounterGrain).ensure_dense(8)
+        rt.enable_dirty_tracking()
+        bridge = ts.VectorStorageBridge(rt, TCounterGrain, storage)
+        gid = bridge._grain_id(3)
+
+        def bump():
+            out = rt.call_batch(TCounterGrain, "bump", np.array([3]),
+                                {"x": np.array([1.0], np.float32)})
+            return int(np.asarray(out)[0])
+
+        assert bump() == 1
+        assert await bridge.flush([3]) == 1
+        _, etag = await storage.read("CounterGrain", gid)
+        # another owner writes the key meanwhile, under a new etag
+        await storage.write("CounterGrain", gid,
+                            {"count": np.int32(10),
+                             "last": np.float32(5.0)}, etag)
+        assert bump() == 2
+        assert await bridge.flush([3]) == 0  # conflict: row released
+        assert bridge.storage_conflicts == 1
+        assert not rt.table(TCounterGrain).dense_active[3]
+        assert bump() == 11  # continued from the stored 10
+        assert float(rt.table(TCounterGrain).read_row(3)["last"]) == 1.0
+        assert await bridge.flush([3]) == 1
+        stored, _ = await storage.read("CounterGrain", gid)
+        assert int(stored["count"]) == 11
+    await asyncio.wait_for(body(), 30)
+
+
+async def test_hosted_silo_answers_during_a_large_flush():
+    """A write-behind flush yields to the loop every FLUSH_SLICE rows: a
+    single ``get_grain`` call on a silo with the default 30 s response
+    timeout is answered while a flush of 32,768 rows is still running
+    (the reference's flush holds the loop for all of them)."""
+    import orleans_tpu_torch.storage.checkpoint as tck
+    n = 32_768
+
+    async def body():
+        b = tr.SiloBuilder().with_name("flush")
+        td.add_vector_grains(b, TCounterGrain,
+                             mesh=t_mesh(8, device="cpu"),
+                             capacity_per_shard=n // 8,
+                             dense={TCounterGrain: n},
+                             storage=ts.MemoryStorage(), flush_period=3600)
+        silo = b.build()
+        assert silo.config.response_timeout == 30.0
+        await silo.start()
+        client = await tr.ClusterClient(silo.fabric).connect()
+        try:
+            silo.vector.call_batch(TCounterGrain, "bump", np.arange(n),
+                                   {"x": np.ones(n, np.float32)})
+            keys = silo.vector.drain_dirty(TCounterGrain)
+            assert len(keys) == n > 4 * tck.FLUSH_SLICE
+            flush = asyncio.ensure_future(
+                silo.vector_bridges[TCounterGrain].flush(keys))
+            answer = await client.get_grain(TCounterGrain, 5).bump(x=2.0)
+            running = not flush.done()
+            assert await flush == n
+            assert int(answer) == 2 and running
+        finally:
+            await client.close_async()
+            await silo.stop()
+    await asyncio.wait_for(body(), 30)

@@ -317,6 +317,98 @@ def test_hashed_regime_matches_jax():
         tt.ensure_dense(8)
 
 
+def _hashed_pair_for_moves(seed=11):
+    """Two 4-shard tables with 22 hashed residents (one shard left with
+    a single free slot), the same random state rows, and the same hit
+    and cost counters."""
+    jrt = JRuntime(mesh=j_mesh(4), capacity_per_shard=8)
+    trt = TRuntime(mesh=t_mesh(4, device="cpu"), capacity_per_shard=8)
+    jt, tt = jrt.table(JPlayer), trt.table(TPlayer)
+    hashes = [(k * 2654435761) & ((1 << 62) - 1) for k in range(1, 200)]
+    on = {s: [h for h in hashes if h % 4 == s] for s in range(4)}
+    keys = on[0][:3] + on[1][:7] + on[2][:5] + on[3][:7]
+    for h in keys:
+        assert jt.lookup_or_allocate(h) == tt.lookup_or_allocate(h)
+    rng = np.random.default_rng(seed)
+    snap = {"pos": rng.random((4, 9, 2), dtype=np.float32),
+            "beats": rng.integers(0, 1000, (4, 9)).astype(np.int32),
+            "game": rng.integers(0, 1024, (4, 9)).astype(np.int32)}
+    jt.restore({k: jnp.asarray(v) for k, v in snap.items()})
+    tt.restore(snap)
+    slots = rng.integers(0, 9, (4, 16)).astype(np.int32)
+    valid = rng.random((4, 16)) < 0.8
+    for tbl in (jt, tt):
+        tbl.enable_hit_tracking()
+        tbl.enable_cost_tracking()
+        tbl.record_hits(slots, valid, 3)
+        tbl.record_cost(slots, valid, 250)
+    return jt, tt, keys
+
+
+def _same_moves(jt, tt):
+    _same_state(jt, tt)
+    assert tt.key_to_slot == jt.key_to_slot and tt.free == jt.free
+    for a in ("tk_lo", "tk_hi", "tvals"):
+        np.testing.assert_array_equal(getattr(tt.device_dir, a),
+                                      getattr(jt.device_dir, a), err_msg=a)
+    np.testing.assert_array_equal(tt.slot_hits(), np.asarray(jt.slot_hits()))
+    np.testing.assert_array_equal(tt.slot_cost(), np.asarray(jt.slot_cost()))
+
+
+def test_move_rows_matches_jax():
+    """Fenced live migration of hashed rows: the rows moved, the state,
+    the host maps, the free lists, the on-device directory and the hit
+    and cost counters equal the reference's, exactly, including the
+    skips (repeated key, key already home, key not resident, destination
+    out of range, destination full)."""
+    jt, tt, keys = _hashed_pair_for_moves()
+    home = {k: jt.key_to_slot[k][0] for k in keys}
+    moves = [(keys[0], 1), (keys[3], 0), (keys[3], 2),  # repeat skipped
+             (keys[4], home[keys[4]]),                 # already home
+             (12345, 2),                               # not resident
+             (keys[5], 9),                             # no such shard
+             (keys[10], 3), (keys[11], 3), (keys[12], 3)]  # shard 3: 1 free
+    ks, ds = zip(*moves)
+    n = jt.move_rows(list(ks), list(ds))
+    assert tt.move_rows(np.asarray(ks), np.asarray(ds)) == n == 3
+    _same_moves(jt, tt)
+    moved = tt.read_row(keys[0])
+    assert tt.key_to_slot[keys[0]][0] == 1
+    # and back: the row travels home with its counters
+    assert jt.move_rows([keys[0]], [0]) == tt.move_rows([keys[0]], [0]) == 1
+    _same_moves(jt, tt)
+    for f, v in tt.read_row(keys[0]).items():
+        np.testing.assert_array_equal(v, moved[f])
+    assert tt.move_rows([], []) == 0
+
+
+def test_move_rows_commits_all_or_nothing():
+    """A failure before the swap leaves the live pools (the same tensor
+    objects, with the same values), the counters, the free lists and the
+    directory as they were: the copy writes into clones."""
+    _, tt, keys = _hashed_pair_for_moves()
+
+    class Boom:
+        def clone(self):
+            raise RuntimeError("copy failed")
+
+    before_state = dict(tt.state)
+    before = {k: v.clone() for k, v in tt.state.items()}
+    before_maps = (dict(tt.key_to_slot), [list(f) for f in tt.free],
+                   tt.device_dir.tk_lo.copy(), tt.device_dir.tvals.copy())
+    hits, tt.hits = tt.hits, Boom()
+    with pytest.raises(RuntimeError, match="copy failed"):
+        tt.move_rows([keys[0], keys[1]], [1, 2])
+    tt.hits = hits
+    assert all(tt.state[k] is before_state[k] for k in before_state)
+    for k, v in before.items():
+        assert torch.equal(tt.state[k], v), k
+    assert tt.key_to_slot == before_maps[0] and tt.free == before_maps[1]
+    np.testing.assert_array_equal(tt.device_dir.tk_lo, before_maps[2])
+    np.testing.assert_array_equal(tt.device_dir.tvals, before_maps[3])
+    assert tt.move_rows([keys[0]], [1]) == 1  # and the move still works
+
+
 def test_interop_moves_jax_state_then_both_tick():
     """JAX state carried into the port by interop, then the same ticks in
     both packages."""
