@@ -56,12 +56,22 @@ the script exits non-zero without its result line):
    reloads 4,096 players and calls them again; every answer is held
    against a numpy model of the schedule (``drive_presence``);
 11. Phase I: Phase H's drive at 20,000 players on the card and on the
-   CPU, compared exactly.
+   CPU, compared exactly;
+12. Phase J: the celebrity fan-out through the device-stream provider on
+   two silos at 1,048,576 subscribers, and the persistent provider's
+   vector path; then the same at 20,000 on the card and on the CPU;
+13. Phase K: live rebalancing on the port's ``TestCluster`` — two silos
+   with membership and management, 262,144 string-keyed counters over 8
+   shards each, 3 rounds of 65,536 skewed calls each followed by a
+   planning round on each silo (the drain packed through K2, the rows
+   moved by ``move_rows``), a kill of one silo and reads of its keys
+   from write-behind storage through the survivor; then the same at
+   20,000 keys on the card and on the CPU, compared exactly.
 
 The launch counts are set to 0 just before Phase A and read just after
-Phase C, and again around Phase E, Phase G and Phase H: a kernel of a
-path that was not launched fails the run (A-C launch both kernels, G
-launches K2, H both; E's tick uses neither). The last two lines are the
+Phase C, and again around Phases E, G, H, J and K: a kernel of a path
+that was not launched fails the run (A-C launch both kernels, G, J and K
+launch K2, H both; E's tick uses neither). The last two lines are the
 ``kernels`` JSON (launches summed over those runs, errors and times in
 ms) and ``{"ok": true, "device": ...}``.
 """
@@ -95,6 +105,10 @@ N_I = 20_000   # Phase I: the card against the CPU
 N_J = 1 << 20  # Phase J: subscribers of the device-stream fan-out
 N_J_CPU = 20_000  # Phase J against the CPU
 J_REWIND = 4096  # Phase J: keys of the rewound subscription
+N_K = 1 << 18  # Phase K: string keys of the live cluster
+N_K_CPU = 20_000  # Phase K against the CPU
+K_ROUNDS, K_CALLS, K_BATCH = 3, 65536, 4096  # Phase K's traffic
+K_FAILOVER = 4096  # Phase K: the dead silo's keys read back
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -444,6 +458,15 @@ def kernel_checks(dev):
     for label, g in j_chunk_dests(dev):
         rank(g, SHARDS_B + 1, f"{label} route")
         check_repeat(lambda: rank_by_dest(g, SHARDS_B + 1), f"K2 {label}")
+    # Phase K: the rebalance planner's 1-D pack of up to rebalance_budget
+    # drain candidates, each bound for a cool shard (1-7), over 8 shards
+    # and the sink; a full round and a short one
+    for n in (16384, 1759):
+        g = torch.randint(1, SHARDS_B, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        rank(g, SHARDS_B + 1, f"Phase K planner drain [{n}]")
+        check_repeat(lambda: rank_by_dest(g, SHARDS_B + 1),
+                     f"K2 Phase K planner drain [{n}]")
     return errs, (dest, values, ids)
 
 
@@ -1678,6 +1701,370 @@ def phase_j_cpu(dev):
           f"CPU, exactly (every row of both providers' paths)")
 
 
+def rebalance_class():
+    from orleans_tpu_torch.dispatch import VectorGrain, actor_method
+
+    class RebalanceVec(VectorGrain):
+        """tests/test_rebalance.py's CounterVec: a hashed-regime counter."""
+
+        STATE = {"count": (torch.int32, ())}
+
+        @staticmethod
+        def initial_state(key_hash):
+            return {"count": torch.zeros_like(key_hash)}
+
+        @actor_method(args={"x": (torch.int32, ())})
+        def bump(state, args):
+            new = {"count": state["count"] + args["x"]}
+            return new, new["count"]
+
+    return RebalanceVec
+
+
+class Timed:
+    """Wrap ``obj.name`` (an instance or module attribute) to add the wall
+    seconds of each call, after a device sync on ``dev``, to ``spent``;
+    ``record(args)`` sees each call's arguments. ``restore()`` undoes it."""
+
+    def __init__(self, obj, name, dev, spent: list, record=None):
+        self.obj, self.name = obj, name
+        self.had = name in vars(obj)
+        inner = getattr(obj, name)
+
+        def call(*a, **kw):
+            if record is not None:
+                record(a)
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            spent.append(time.perf_counter() - t0)
+            return out
+        self.inner = inner
+        setattr(obj, name, call)
+
+    def restore(self):
+        if self.had:
+            setattr(self.obj, self.name, self.inner)
+        else:
+            delattr(self.obj, self.name)
+
+
+def drive_cluster(dev, n_keys, profile=None):
+    """Phase K's live cluster on ``dev``: the port's ``TestCluster`` of two
+    silos (membership, management, ``with_rebalancer(period=0)``) on one
+    InProcFabric, each with RebalanceVec over 8 shards of 65,536 slots,
+    write-behind to the cluster's MemoryStorage, ``rebalance_budget``
+    16,384 and ``rebalance_imbalance_ratio`` 1.2. ``n_keys`` string keys
+    ``u{i}`` (63-bit hashes) are activated through ``client.call_batch``;
+    3 rounds of 65,536 ``bump(x=1)`` calls (seed 7; half to keys that sat
+    on shard 0 of their silo at activation, half uniform over the rest,
+    batches of 4,096) each followed by ``run_round()`` on each silo's
+    rebalancer (the first of the silo with more keys inside
+    ``profile()`` when given);
+    then the write-behind drain, a kill of silo 1, its death, and 4,096
+    of its keys called through the survivor; ``stop_all()`` within 60 s.
+    Checks every count and move exactly; returns (results, stats)."""
+    import orleans_tpu_torch.ops.route as route
+    from orleans_tpu_torch.core.ids import GrainId, GrainType
+    from orleans_tpu_torch.management import ManagementGrain
+    from orleans_tpu_torch.ops import RANK_BY_DEST
+    from orleans_tpu_torch.parallel import make_mesh
+    from orleans_tpu_torch.storage import MemoryStorage
+    from orleans_tpu_torch.testing import TestClusterBuilder
+    Vec = rebalance_class()
+    keys = [f"u{i}" for i in range(n_keys)]
+    gt = GrainType.of(Vec.__name__)
+    hashes = [GrainId.for_grain(gt, k).uniform_hash for k in keys]
+    model = np.zeros(n_keys, np.int64)
+    res: dict = {"moves": [], "rows_moved": [], "shares": []}
+    st: dict = {"round_s": [], "plan_s": [], "pack_s": [], "move_s": [],
+                "k2_shapes": [], "k2_rounds": 0, "k2_operands": []}
+
+    async def call(idx, x):
+        """One client.call_batch of ``keys[idx]``; the answers."""
+        futs = cluster.client.call_batch(
+            Vec, "bump", [(keys[i], {"x": x}) for i in idx])
+        return np.array([int(v) for v in await asyncio.gather(*futs)],
+                        np.int64)
+
+    def locations(tbl):
+        """key index -> (shard, slot) of the keys ``tbl`` holds."""
+        k2s = tbl.key_to_slot
+        return {i: k2s[h] for i, h in enumerate(hashes) if h in k2s}
+
+    def counts(silo_tables):
+        out = np.full(n_keys, -1, np.int64)
+        for tbl in silo_tables:
+            loc = locations(tbl)
+            idx = np.fromiter(loc, np.int64, len(loc))
+            sh = torch.tensor([loc[i][0] for i in idx], dtype=torch.int64,
+                              device=tbl.device)
+            sl = torch.tensor([loc[i][1] for i in idx], dtype=torch.int64,
+                              device=tbl.device)
+            with tbl.fence:
+                out[idx] = tbl.state["count"][sh, sl].cpu().numpy()
+        return out
+
+    def record_pack(args):
+        st["k2_shapes"].append(tuple(args[0].shape))
+        st["k2_operands"].append(args[0].detach().clone())
+
+    cluster = None
+
+    async def run():
+        nonlocal cluster
+        storage = MemoryStorage()
+        cluster = (TestClusterBuilder(2).with_storage(storage)
+                   .with_config(membership_probe_period=1.0,
+                                membership_probe_timeout=5.0,
+                                membership_missed_probes_limit=2,
+                                response_timeout=30.0,
+                                rebalance_budget=16384,
+                                rebalance_imbalance_ratio=1.2)
+                   .with_vector_grains(Vec, mesh=make_mesh(SHARDS_B, dev),
+                                       capacity_per_shard=65536,
+                                       storage=storage, flush_period=0.5)
+                   .with_rebalancer(period=0).build())
+        await cluster.deploy()
+        try:
+            await drive(storage)
+        finally:
+            t0 = time.perf_counter()
+            await asyncio.wait_for(cluster.stop_all(), 60)
+            st["stop_s"] = time.perf_counter() - t0
+
+    async def drive(storage):
+        silos = cluster.silos
+        tbls = [s.vector.table(Vec) for s in silos]
+        t0 = time.perf_counter()
+        for lo in range(0, n_keys, K_BATCH):
+            got = await call(range(lo, min(lo + K_BATCH, n_keys)), 0)
+            assert not got.any(), "Phase K: a fresh key's count is not 0"
+        st["activate_s"] = time.perf_counter() - t0
+        locs = [locations(t) for t in tbls]
+        owner = np.full(n_keys, -1, np.int64)
+        shard0 = np.zeros(n_keys, bool)
+        for si, loc in enumerate(locs):
+            idx = np.fromiter(loc, np.int64, len(loc))
+            assert (owner[idx] == -1).all(), "Phase K: a key on two silos"
+            owner[idx] = si
+            shard0[idx] = [loc[i][0] == 0 for i in idx]
+        assert (owner >= 0).all(), "Phase K: a key has no silo"
+        res["owner"] = owner
+        active = [t.active_count() for t in tbls]
+        assert sum(active) == n_keys, f"Phase K: {active} rows for {n_keys}"
+        big = int(np.argmax(active))  # the ring splits keys unevenly
+        st["profiled_silo"] = big
+        for s in silos:  # manual rounds: the caller turns the counters on
+            s.vector.enable_load_tracking()
+        timers = []
+        for s, tbl in zip(silos, tbls):
+            timers.append(Timed(s.rebalancer.planner, "plan", dev,
+                                st["plan_s"]))
+            timers.append(Timed(tbl, "move_rows", dev, st["move_s"]))
+        timers.append(Timed(route, "pack_by_dest", dev, st["pack_s"],
+                            record_pack))
+        rng = np.random.default_rng(7)
+        hot, rest = np.flatnonzero(shard0), np.flatnonzero(~shard0)
+        half = K_BATCH // 2
+        try:
+            for r in range(K_ROUNDS):
+                t0 = time.perf_counter()
+                for _ in range(K_CALLS // K_BATCH):
+                    idx = np.concatenate([rng.choice(hot, half, replace=False),
+                                          rng.choice(rest, half,
+                                                     replace=False)])
+                    rng.shuffle(idx)
+                    model[idx] += 1
+                    got = await call(idx, 1)
+                    assert np.array_equal(got, model[idx]), \
+                        f"Phase K round {r + 1}: an answer is off the model"
+                st["round_s"].append(time.perf_counter() - t0)
+                for si, (s, tbl) in enumerate(zip(silos, tbls)):
+                    hits = tbl.shard_hits()
+                    res["shares"].append(float(hits[0]) / float(hits.sum()))
+                    before = locations(tbl)
+                    k2 = RANK_BY_DEST.launches
+                    window = profile() if (profile is not None and r == 0
+                                           and si == big) else None
+                    if window is not None:
+                        with window:
+                            outcome = await s.rebalancer.run_round()
+                        st["window"] = window
+                    else:
+                        outcome = await s.rebalancer.run_round()
+                    after = locations(tbl)
+                    assert set(after) == set(before), \
+                        f"Phase K: silo {si} lost or gained a key"
+                    moved = sorted((i, after[i][0]) for i in after
+                                   if after[i][0] != before[i][0])
+                    assert outcome["rows_moved"] == len(moved), \
+                        (f"Phase K round {r + 1} silo {si}: rows_moved "
+                         f"{outcome['rows_moved']} != {len(moved)} moved")
+                    assert outcome["migrated"] == 0
+                    res["moves"].append(moved)
+                    res["rows_moved"].append(outcome["rows_moved"])
+                    packed = 1 if outcome["planned"] else 0
+                    st["k2_rounds"] += packed
+                    want = packed if dev.type == "cuda" else 0
+                    assert RANK_BY_DEST.launches - k2 == want, \
+                        (f"Phase K round {r + 1} silo {si}: K2 launched "
+                         f"{RANK_BY_DEST.launches - k2} times, want {want}")
+        finally:
+            for t in timers:
+                t.restore()
+        assert [t.active_count() for t in tbls] == active, \
+            "Phase K: a silo's row count changed"
+        assert sum(res["rows_moved"]) > 0, "Phase K: no row moved"
+        for si in range(2):
+            first, last = res["shares"][si], res["shares"][4 + si]
+            assert last < first, \
+                f"Phase K silo {si}: hot shard share {first} -> {last}"
+        got = counts(tbls)
+        assert np.array_equal(got, model), "Phase K: counts off the model"
+        res["counts"] = got
+        mgmt = cluster.client.get_grain(ManagementGrain, 0)
+        stats = await mgmt.get_simple_grain_statistics()
+        hosts = await mgmt.get_hosts()
+        assert stats.get("RebalanceVec") == n_keys, stats
+        names = {str(s.silo_address): i for i, s in enumerate(silos)}
+        res["hosts"] = sorted((names[a], v) for a, v in hosts.items())
+        assert res["hosts"] == [(0, "Active"), (1, "Active")], hosts
+        # failover: the write-behind drain, a kill, its death, the reads
+        victim, survivor = silos[1], silos[0]
+        sample = np.flatnonzero(owner == 1)[:K_FAILOVER]
+        # the bridge stores a hashed row under its key hash
+        gids = [GrainId.for_grain(gt, hashes[i]) for i in sample]
+        t0 = time.perf_counter()
+        deadline = t0 + 120.0
+        while True:
+            stored = [await storage.read(Vec.__name__, g) for g in gids]
+            vals = np.array([-1 if s is None else int(np.asarray(s["count"]))
+                             for s, _ in stored], np.int64)
+            if not victim.vector._dirty.get(Vec) and \
+                    np.array_equal(vals, model[sample]):
+                break
+            assert time.perf_counter() < deadline, \
+                "Phase K: the write-behind flush did not drain in 120 s"
+            await asyncio.sleep(0.05)
+        st["flush_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        await cluster.kill_silo(victim)
+        await cluster.wait_for_death(victim, timeout=60.0)
+        st["death_s"] = time.perf_counter() - t0
+        res["views"] = [(sorted(names[str(a)] for a in s.membership.active),
+                         sorted(names[str(a)] for a in s.membership.dead
+                                if str(a) in names))
+                        for s in cluster.alive_silos]
+        assert res["views"] == [([0], [1])], res["views"]
+        t0 = time.perf_counter()
+        got = await call(sample, 0)
+        st["failover_s"] = time.perf_counter() - t0
+        assert np.array_equal(got, model[sample]), \
+            "Phase K failover: a key lost its persisted count"
+        assert survivor.stats.get("vector.storage.recovered") >= 1
+        res["failover"] = got
+
+    t0 = time.perf_counter()
+    asyncio.run(run())
+    st["wall_s"] = time.perf_counter() - t0
+    return res, st
+
+
+def phase_k(dev, card):
+    """Phase K: the live cluster of ``drive_cluster`` at N_K keys on the
+    card; prints where its time went, one planning round captured by the
+    port's ``observability.profiling.Profiler``, and K2 at the planner's
+    shapes; returns the kernels' launch counts."""
+    from orleans_tpu_torch.ops import KERNELS, RANK_BY_DEST
+    from orleans_tpu_torch.ops import rank_by_dest, rank_by_dest_ref
+    scratch = os.path.join(ROOT, "orleans_tpu_torch", "_build")
+    os.makedirs(scratch, exist_ok=True)
+    trace_dir = tempfile.mkdtemp(prefix="phase_k_trace_", dir=scratch)
+    try:
+        res, st = drive_cluster(dev, N_K, lambda: TraceWindow(trace_dir))
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    launched = {k.name: k.launches for k in KERNELS}
+    calls = K_ROUNDS * K_CALLS
+    print(f"Phase K: live rebalancing, {N_K} string keys on a TestCluster "
+          f"of 2 silos x {SHARDS_B} shards, on {card}; "
+          f"{st['wall_s']:.3f} s in all")
+    print(f"  activation ({N_K} keys, client.call_batch of {K_BATCH}): "
+          f"{st['activate_s']:.3f} s, {N_K / st['activate_s']:.0f} keys/sec")
+    print(f"  traffic rounds ({K_CALLS} bump calls each): "
+          + ", ".join(f"{s:.3f} s ({K_CALLS / s:.0f} calls/sec)"
+                      for s in st["round_s"]))
+    print(f"  run_round x {len(st['plan_s'])}: plan "
+          + ", ".join(f"{s * 1e3:.3f}" for s in st["plan_s"])
+          + " ms; pack_by_dest (K2) "
+          + ", ".join(f"{s * 1e3:.3f}" for s in st["pack_s"])
+          + " ms at " + ", ".join(str(s) for s in st["k2_shapes"])
+          + "; move_rows "
+          + ", ".join(f"{s * 1e3:.3f}" for s in st["move_s"]) + " ms")
+    print(f"  rows moved per (round, silo): {res['rows_moved']} "
+          f"(= the keys whose shard changed); hot shard share of hits per "
+          f"(round, silo): {[round(x, 6) for x in res['shares']]}")
+    print(f"  write-behind drain before the kill {st['flush_s']:.3f} s, "
+          f"death detected in {st['death_s']:.3f} s, {K_FAILOVER} failover "
+          f"calls through the survivor {st['failover_s']:.3f} s (every "
+          f"persisted count exact), stop_all {st['stop_s']:.3f} s "
+          f"(bound 60 s)")
+    print(f"  {calls} calls, every count exact; K2 launched in "
+          f"{st['k2_rounds']} of {len(res['rows_moved'])} (silo, round) "
+          f"planning rounds, {launched[RANK_BY_DEST.name]} in the phase")
+    w = st["window"]
+    k2 = [(t, c) for k, (t, c) in w.kernels.items()
+          if "rank_by_dest_kernel" in k]
+    seen = sum(c for _, c in k2)
+    assert w.launched[RANK_BY_DEST.name] == 1, \
+        "Phase K: the profiled planning round did not launch K2 once"
+    print(f"  planning round (silo {st['profiled_silo']}, round 1, the silo "
+          f"with more keys) in the port's Profiler: {w.wall_ms:.3f} ms wall, "
+          f"{len(w.kernels)} device kernels, busy "
+          f"{sum(t for t, _ in w.kernels.values()):.4f} ms; K2 launched "
+          f"once, the capture kept {seen:g} of it"
+          + (f" ({sum(t for t, _ in k2) / seen:.6f} ms device)" if seen
+             else " (CUPTI drops some cluster launches)") + f" on {card}")
+    # K2 held against its plain version on every operand the planner
+    # handed it, and timed alone at the largest (these launches come
+    # after the phase's count was read)
+    for d in st["k2_operands"]:
+        check_rank(d, SHARDS_B + 1, f"Phase K planner drain {tuple(d.shape)}")
+    for d in [max(st["k2_operands"], key=len)]:
+        def k2_call():
+            return rank_by_dest(d, SHARDS_B + 1)
+
+        k2 = [(t, c) for k, (t, c) in device_profile(k2_call, 100).items()
+              if "rank_by_dest_kernel" in k]
+        seen = sum(c for _, c in k2)
+        dev_ms = f"{sum(t for t, _ in k2) / seen:.6f}" if seen \
+            else "not measured (the profile kept no launch)"
+        print(f"  K2 at the planner's {tuple(d.shape)}: wrapper "
+              f"{time_ms(k2_call):.4f} ms (CUDA events), device {dev_ms} ms "
+              f"a launch (the profile kept {seen:g} launches a call), plain "
+              f"{time_ms(lambda: rank_by_dest_ref(d, SHARDS_B + 1), 5):.4f}"
+              f" ms, bound {d.nbytes * 2 / HBM_BYTES_PER_S * 1e3:.6f} ms "
+              f"(bytes) on {card}")
+    return launched
+
+
+def phase_k_cpu(dev):
+    """Phase K's scenario at N_K_CPU keys on the card and on the CPU: the
+    counts, the moved keys and their shards, the hot shares, the
+    membership views and the failover answers equal exactly."""
+    got = [drive_cluster(d, N_K_CPU)[0]
+           for d in (dev, torch.device("cpu"))]
+    for f in got[0]:
+        a, b = got[0][f], got[1][f]
+        same = np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
+        assert same, f"Phase K {f}: card != CPU"
+    print(f"Phase K: the same scenario at {N_K_CPU} keys, card == CPU, "
+          f"exactly (counts, moves and destination shards, views, "
+          f"failover reads)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -1754,10 +2141,22 @@ def main() -> int:
     phase_j_cpu(dev)
     print(f"Phase J with its CPU comparison: "
           f"{time.perf_counter() - t_j:.3f} s")
+    # Phase K: the live cluster; each planning round with drain
+    # candidates packs them through K2
+    for k in KERNELS:
+        k.launches = 0
+    t_k = time.perf_counter()
+    launches_k = phase_k(dev, card)
+    assert launches_k[RANK_BY_DEST.name] > 0, "K2 not launched in Phase K"
+    t_kc = time.perf_counter()
+    phase_k_cpu(dev)
+    print(f"Phase K: {t_kc - t_k:.3f} s, its CPU comparison "
+          f"{time.perf_counter() - t_kc:.3f} s")
     print(f"launches on the main path: A-C {launches}, E {launches_e}, "
-          f"G {launches_g}, H {launches_h}, J {launches_j}")
+          f"G {launches_g}, H {launches_h}, J {launches_j}, K {launches_k}")
     launches = {name: launches[name] + launches_e[name] + launches_g[name]
-                + launches_h[name] + launches_j[name] for name in launches}
+                + launches_h[name] + launches_j[name] + launches_k[name]
+                for name in launches}
 
     sources = {SEGMENT_SUM.name: ("orleans_tpu/ops/segment_reduce.py:87",
                                   "orleans_tpu_torch/ops/csrc/segment_sum.cu"),

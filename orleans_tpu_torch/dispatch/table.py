@@ -321,9 +321,13 @@ class ShardedActorTable:
         new_hits = None if self.hits is None else moved(self.hits, True)
         new_cost = None if self.cost is None else moved(self.cost, True)
         self.state, self.hits, self.cost = new_state, new_hits, new_cost
+        # the claimed slots are the tail of each destination's free list
+        # (peeked above): cut them off in one step, not one list search a
+        # key
+        for d_sh, n_taken in taken.items():
+            del self.free[d_sh][-n_taken:]
         for key, s_sh, s_sl, d_sh, d_sl in zip(
                 moved_keys, src_sh, src_sl, dst_sh, dst_sl):
-            self.free[d_sh].remove(d_sl)
             self.free[s_sh].append(s_sl)
             self.key_to_slot[key] = (d_sh, d_sl)
             self.device_dir.remove(key)

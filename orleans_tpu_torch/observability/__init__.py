@@ -1,7 +1,8 @@
 """Observability of the port: statistics, distributed tracing, and the
 host-loop occupancy profiler with ``torch.profiler`` device traces (the
 port of ``orleans_tpu.observability``: ``stats``, ``tracing`` and
-``profiling``; export, metrics, slo and ledger are not ported)."""
+``profiling``, and the telemetry consumers with the watchdog; export,
+metrics, slo and ledger are not ported)."""
 
 from .profiling import (  # noqa: F401
     LOOP_CATEGORIES,
@@ -24,6 +25,14 @@ from .stats import (  # noqa: F401
     CallSiteStats,
     Histogram,
     StatsRegistry,
+)
+from .telemetry import (  # noqa: F401
+    FileTelemetryConsumer,
+    LoggingTelemetryConsumer,
+    TelemetryConsumer,
+    TelemetryManager,
+    Watchdog,
+    add_telemetry,
 )
 from .tracing import (  # noqa: F401
     TRACE_KEY,

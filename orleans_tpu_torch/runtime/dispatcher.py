@@ -219,7 +219,8 @@ class Dispatcher:
             reason = str(e)  # `e` unbinds when the except block exits
             heal = getattr(self.silo.locator,
                            "unregister_after_nonexistent", None)
-            if heal is None:
+            if heal is None or msg.target_grain.is_system_target():
+                # a system target is in no directory: nothing to heal
                 self._reject_or_forward(msg, reason)
                 return
 
@@ -1378,8 +1379,16 @@ class Dispatcher:
 
     def _reject_or_forward(self, msg: Message, reason: str) -> None:
         """Misdelivered/raced request: re-address and forward up to
-        MaxForwardCount hops, else reject transient (Dispatcher.cs:591-630)."""
-        if msg.forward_count < MAX_FORWARD_COUNT:
+        MaxForwardCount hops, else reject transient (Dispatcher.cs:591-630).
+
+        A system-target request is rejected at once: its id names the silo
+        it lives on, so re-addressing resolves to this silo again. Each such
+        self-forward also sent a fresh directory request about the id (the
+        stale-entry heal and the sender's cache notice), which misses in
+        turn on a silo whose targets are gone (stopping, or re-addressed),
+        so the fan-out recursed with the forward count reset at every hop."""
+        if msg.forward_count < MAX_FORWARD_COUNT and \
+                not msg.target_grain.is_system_target():
             msg.forward_count += 1
             msg.target_silo = None
             msg.target_activation = None

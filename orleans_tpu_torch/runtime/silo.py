@@ -1292,11 +1292,36 @@ class Silo:
         with its remote legs. SYSTEM-category RPCs never root traces, so
         the pull cannot recursively trace itself; unreachable peers just
         contribute nothing (export stays best-effort)."""
-        # The control target that answers the pull (management.control
-        # SiloControl) is not ported, so no peer can answer: a retained
-        # trace exports with its local legs, as in the JAX package on a
-        # cluster without management installed.
-        return []
+        from ..core.ids import type_code_of
+        from ..management.control import SILO_CONTROL, SiloControl
+        peers = [a for a in self.locator.alive_list
+                 if a != self.silo_address]
+        if not peers:
+            return []
+        calls = [self.runtime_client.send_request(
+            target_grain=GrainId.system_target(type_code_of(SILO_CONTROL), a),
+            grain_class=SiloControl, interface_name=SILO_CONTROL,
+            method_name="ctl_trace_spans", args=(trace_id,),
+            kwargs={"pull": True},
+            target_silo=a, category=Category.SYSTEM, timeout=1.0)
+            for a in peers]
+        results = await asyncio.gather(*calls, return_exceptions=True)
+        # cross-process span-level dedup: worker-process silos make the
+        # duplicate pull real — a leg that was forwarded (or a span a
+        # peer itself pulled and retained) can come back from more than
+        # one silo in this fan-out, and export must not double-count it
+        out: list[dict] = []
+        seen: set = set()
+        for r in results:
+            if not isinstance(r, BaseException) and r:
+                for d in r:
+                    sid = d.get("span_id")
+                    if sid is not None:
+                        if sid in seen:
+                            continue
+                        seen.add(sid)
+                    out.append(d)
+        return out
 
     def _install_loop_profiler(self, loop) -> None:
         """Install (or join) the loop's occupancy profiler and wire this
