@@ -45,8 +45,8 @@ the script exits non-zero without its result line):
    sum must equal the deliveries), ``map_actors``, ``join_when`` and a
    reshard 8 → 7 → 8 that keeps the sum;
 10. Phase H: Presence through a hosted silo — ``samples/presence_torch.py``
-   at Phase E's population (1,048,576 PlayerVectorGrains over 8 shards,
-   write-behind ``MemoryStorage`` flushed every 0.5 s, scheduled
+   at 262,144 PlayerVectorGrains over 8 shards (write-behind
+   ``MemoryStorage`` flushed every 0.5 s, scheduled
    checkpoints, the off-loop tick): bulk waves, 65,536 heartbeats through
    ``client.call_batch``, 4,096 single calls and 1,024 ``whereis``, a
    ``client.broadcast_actors`` to every player (K2 on every chunk) with
@@ -66,19 +66,31 @@ the script exits non-zero without its result line):
    planning round on each silo (the drain packed through K2, the rows
    moved by ``move_rows``), a kill of one silo and reads of its keys
    from write-behind storage through the survivor; then the same at
-   20,000 keys on the card and on the CPU, compared exactly.
+   20,000 keys on the card and on the CPU, compared exactly;
+14. Phase L: Presence over real TCP gateways. The port's native hotwire
+   codec and loop runner must be the ones loaded. L1 runs Phase H's
+   drive at 1,048,576 players with a ``GatewayClient`` dialled to each
+   silo's ``SocketFabric`` gateway (every answer over the wire against
+   the model; K1 in each of the 64 summaries, K2 in each of the 64
+   broadcast chunks); L2 runs two silos on their own fabrics with the
+   client on silo 0's gateway: 65,536 heartbeats (silo 1's forwarded over
+   the peer socket, counted exactly), a broadcast whose partition crosses
+   to silo 1, a reduce; then L1's drive at 20,000 players over TCP on the
+   card and on the CPU, equal to each other and to Phase I.
 
-The launch counts are set to 0 just before Phase A and read just after
-Phase C, and again around Phases E, G, H, J and K: a kernel of a path
-that was not launched fails the run (A-C launch both kernels, G, J and K
-launch K2, H both; E's tick uses neither). The last two lines are the
-``kernels`` JSON (launches summed over those runs, errors and times in
-ms) and ``{"ok": true, "device": ...}``.
+Phase H runs at 262,144 players (L1 runs its drive at full width). The
+launch counts are set to 0 just before Phase A and read just after Phase
+C, and again around Phases E, G, H, J, K and L: a kernel of a path that
+was not launched fails the run (A-C launch both kernels, G, J and K
+launch K2, H and L both; E's tick uses neither). The last two lines are
+the ``kernels`` JSON (launches summed over those runs, errors and times
+in ms) and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import math
 import os
@@ -100,7 +112,10 @@ K = 8
 SHARDS_B = 8
 N_E = 1 << 20  # Phase E: bench.py's population, rounded to 2^20
 N_G = 1 << 20  # Phase G: subscribers of the celebrity fan-out
-N_H = 1 << 20  # Phase H: hosted Presence players, Phase E's population
+# Phase H: hosted Presence players, cut from Phase E's population to a
+# quarter so that A-L fit the run's time limit (Phase L1 runs the same
+# drive at full width, over TCP)
+N_H = 1 << 18
 N_I = 20_000   # Phase I: the card against the CPU
 N_J = 1 << 20  # Phase J: subscribers of the device-stream fan-out
 N_J_CPU = 20_000  # Phase J against the CPU
@@ -109,6 +124,9 @@ N_K = 1 << 18  # Phase K: string keys of the live cluster
 N_K_CPU = 20_000  # Phase K against the CPU
 K_ROUNDS, K_CALLS, K_BATCH = 3, 65536, 4096  # Phase K's traffic
 K_FAILOVER = 4096  # Phase K: the dead silo's keys read back
+N_L = 1 << 20  # Phase L1: Presence over a TCP gateway, Phase E's population
+N_L2 = 1 << 20  # Phase L2: players of the two silos over TCP
+L2_CALLS = 65536  # Phase L2: heartbeats through silo 0's gateway
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -446,15 +464,18 @@ def kernel_checks(dev):
         g = g_chunk_dest(dev, targets, per)
         rank(g, SHARDS_B + 1, f"{label} route")
         check_repeat(lambda: rank_by_dest(g, SHARDS_B + 1), f"K2 {label}")
-    # Phase H: a broadcast chunk of 16,384 consecutive players (no busy
-    # keys: every chunk is one or two owning shards) and the summary's
-    # fan-in of [N_H, 2] (score, 1) rows into 64 games, inactive rows on -1
-    per = -(-N_H // SHARDS_B)
-    g = g_chunk_dest(dev, np.arange(3 * 16384, 4 * 16384), per)
-    rank(g, SHARDS_B + 1, "Phase H broadcast chunk route")
-    hv, hid = h_summary_inputs(dev, gen)
-    seg(hv, hid, 64, "Phase H summary fan-in")
-    check_repeat(lambda: segment_sum(hv, hid, 64), "K1 Phase H summary")
+    # Phases H and L1: a broadcast chunk of 16,384 consecutive players
+    # (no busy keys: every chunk is one or two owning shards) and the
+    # summary's fan-in of [n, 2] (score, 1) rows into 64 games, inactive
+    # rows on -1, at each phase's population
+    for phase, n in (("Phase L1", N_L), ("Phase H", N_H)):
+        per = -(-n // SHARDS_B)
+        g = g_chunk_dest(dev, np.arange(3 * 16384, 4 * 16384), per)
+        rank(g, SHARDS_B + 1, f"{phase} broadcast chunk route")
+        hv, hid = h_summary_inputs(dev, gen, n)
+        seg(hv, hid, 64, f"{phase} summary fan-in")
+        check_repeat(lambda: segment_sum(hv, hid, 64),
+                     f"K1 {phase} summary")
     for label, g in j_chunk_dests(dev):
         rank(g, SHARDS_B + 1, f"{label} route")
         check_repeat(lambda: rank_by_dest(g, SHARDS_B + 1), f"K2 {label}")
@@ -484,14 +505,14 @@ def j_chunk_dests(dev):
              g_chunk_dest(dev, part[tail:], per))]
 
 
-def h_summary_inputs(dev, gen):
+def h_summary_inputs(dev, gen, n):
     """K1's operands as ``presence_torch.game_totals`` builds them for
-    Phase H: per player (score, 1) as int32 [N_H, 2], ids the player's
-    game (key % 64), with a few inactive players on -1."""
-    keys = torch.arange(N_H, device=dev, dtype=torch.int32)
-    ids = torch.where(torch.rand(N_H, generator=gen, device=dev) < 0.001,
+    Phases H and L1: per player (score, 1) as int32 [n, 2], ids the
+    player's game (key % 64), with a few inactive players on -1."""
+    keys = torch.arange(n, device=dev, dtype=torch.int32)
+    ids = torch.where(torch.rand(n, generator=gen, device=dev) < 0.001,
                       torch.full_like(keys, -1), keys % 64)
-    score = torch.randint(5, 40, (N_H,), generator=gen, device=dev,
+    score = torch.randint(5, 40, (n,), generator=gen, device=dev,
                           dtype=torch.int32)
     return torch.stack([score, torch.ones_like(score)], dim=1), ids
 
@@ -1171,6 +1192,14 @@ class TraceWindow:
         return False
 
 
+def build_tmpdir(prefix: str) -> str:
+    """A new temporary directory under ``orleans_tpu_torch/_build``
+    (gitignored); the caller removes it."""
+    scratch = os.path.join(ROOT, "orleans_tpu_torch", "_build")
+    os.makedirs(scratch, exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=scratch)
+
+
 def presence_sample():
     sys.path.insert(0, os.path.join(ROOT, "samples"))
     import presence_torch
@@ -1192,9 +1221,7 @@ def drive_hosted(dev, n_players, profile=None):
         return pt.build_silo(n_players, mesh, storage=storage,
                              checkpoint_dir=checkpoint_dir)
 
-    scratch = os.path.join(ROOT, "orleans_tpu_torch", "_build")
-    os.makedirs(scratch, exist_ok=True)
-    ckdir = tempfile.mkdtemp(prefix="phase_h_ckpt_", dir=scratch)
+    ckdir = build_tmpdir("phase_h_ckpt_")
     try:
         return asyncio.run(pt.drive_presence(
             build, ClusterClient, MemoryStorage(), pt.PlayerVectorGrain,
@@ -1204,19 +1231,18 @@ def drive_hosted(dev, n_players, profile=None):
 
 
 def phase_h(dev, card):
-    """Presence through a hosted silo at Phase E's population; prints the
-    hosted path's rates (each step's wall, and the part of it that
-    write-behind flushes held the loop) and the device idle share of one
-    profiled ``client.call_batch`` batch. Returns the kernels' launch
-    counts of the drive, then times the summary's device work at its
-    shapes outside the silo (those launches are not the drive's)."""
+    """Presence through a hosted silo at N_H players; prints the hosted
+    path's rates (each step's wall, and the part of it that write-behind
+    flushes held the loop) and the device idle share of one profiled
+    ``client.call_batch`` batch. Returns the kernels' launch counts of the
+    drive and its stats (Phase L prints its steps beside them), then times
+    the summary's device work at its shapes outside the silo (those
+    launches are not the drive's)."""
     from orleans_tpu_torch.dispatch import VectorRuntime
     from orleans_tpu_torch.ops import KERNELS, segment_sum
     from orleans_tpu_torch.parallel import make_mesh
     windows = {}
-    scratch = os.path.join(ROOT, "orleans_tpu_torch", "_build")
-    os.makedirs(scratch, exist_ok=True)
-    trace_dir = tempfile.mkdtemp(prefix="phase_h_trace_", dir=scratch)
+    trace_dir = build_tmpdir("phase_h_trace_")
 
     def profile(step):
         windows[step] = (TraceWindow(trace_dir) if step == "summary"
@@ -1227,7 +1253,8 @@ def phase_h(dev, card):
     n_players = N_H
     t0 = time.perf_counter()
     try:
-        res, st = drive_hosted(dev, n_players, profile)
+        with GcPauses() as gc_h:
+            res, st = drive_hosted(dev, n_players, profile)
     finally:
         shutil.rmtree(trace_dir, ignore_errors=True)
     wall = time.perf_counter() - t0
@@ -1311,6 +1338,7 @@ def phase_h(dev, card):
           f"bit for bit); a storage-only silo reloaded "
           f"{res['loaded'].size} players and continued their scores, on "
           f"{card}")
+    print(f"  {gc_h.line()} (in H's drive)")
     # the summary's device work at its shapes: a table of n_players
     # activated by one wave, its operands as GameGrain builds them
     rt = VectorRuntime(make_mesh(SHARDS_B, dev),
@@ -1332,7 +1360,7 @@ def phase_h(dev, card):
           f"into {pt.N_GAMES} games): game_totals {totals_ms:.4f} ms, K1 "
           f"{k1_ms:.4f} ms (CUDA events); profiler: K1 device "
           f"{k1_dev:.4f} ms, all kernels {busy:.4f} ms a summary on {card}")
-    return launched
+    return launched, st
 
 
 def same_results(a, b, label: str) -> None:
@@ -1350,12 +1378,14 @@ def same_results(a, b, label: str) -> None:
 
 def phase_i(dev):
     """Phase H's drive at 20,000 players on the card and on the CPU: every
-    returned value and the final tables equal."""
-    got_cuda, _ = drive_hosted(dev, N_I)
+    returned value and the final tables equal. Returns the card's results
+    and stats (Phase L's drive over TCP must give the same results)."""
+    got_cuda, st_cuda = drive_hosted(dev, N_I)
     got_cpu, _ = drive_hosted(torch.device("cpu"), N_I)
     same_results(got_cuda, got_cpu, "Phase I")
     print(f"Phase I: Phase H's drive at {N_I} players x {SHARDS_B} shards, "
           f"card == CPU, exactly (every answer and the final table)")
+    return got_cuda, st_cuda
 
 
 def rewind_class():
@@ -1979,9 +2009,7 @@ def phase_k(dev, card):
     shapes; returns the kernels' launch counts."""
     from orleans_tpu_torch.ops import KERNELS, RANK_BY_DEST
     from orleans_tpu_torch.ops import rank_by_dest, rank_by_dest_ref
-    scratch = os.path.join(ROOT, "orleans_tpu_torch", "_build")
-    os.makedirs(scratch, exist_ok=True)
-    trace_dir = tempfile.mkdtemp(prefix="phase_k_trace_", dir=scratch)
+    trace_dir = build_tmpdir("phase_k_trace_")
     try:
         res, st = drive_cluster(dev, N_K, lambda: TraceWindow(trace_dir))
     finally:
@@ -2065,6 +2093,466 @@ def phase_k_cpu(dev):
           f"failover reads)")
 
 
+# ---------------------------------------------------------------------------
+# Phase L: Presence over real TCP gateways
+# ---------------------------------------------------------------------------
+
+def native_check() -> None:
+    """The port's native modules are the ones in use: its hotwire codec is
+    loaded and writes 0xA7 frames, and the loop profiler installs the
+    native runner (no pickle or pure-Python fallback can hide here)."""
+    import orleans_tpu_torch.core.serialization as ser
+    from orleans_tpu_torch.observability import profiling
+    assert ser._hotwire is not None, "the port's hotwire codec did not load"
+    frame = ser.serialize({"k": [1, 2.5, "x"], "a": np.arange(3)})
+    assert frame[:1] == b"\xa7", "serialize() wrote no hotwire frame"
+    loop = asyncio.new_event_loop()
+    try:
+        prof = profiling.install_loop_profiler(loop)
+        kind = type(prof)
+        profiling.uninstall_loop_profiler(loop)
+    finally:
+        loop.close()
+    assert kind is profiling._NativeLoopProfiler, \
+        f"install_loop_profiler gave {kind.__name__}, not the native runner"
+    print(f"native: hotwire {os.path.basename(ser._hotwire.__file__)}, "
+          f"hotloop {os.path.basename(profiling._hotloop.__file__)} "
+          f"(orleans_tpu_torch/_build), {kind.__name__} installed")
+
+
+class WireCount:
+    """Counts the frames and bytes that each side of the port's socket
+    fabric received, at its batched receive pump: what the silos received
+    is what the clients and peer silos sent them, and what the clients
+    received is what the silos sent them. ``counts`` maps "silo" and
+    "client" to [frames, bytes]."""
+
+    def __enter__(self):
+        import contextvars
+
+        import orleans_tpu_torch.runtime.socket_fabric as sf
+        self._sf = sf
+        self._read, self._decode = sf._read_frame_batches, sf.decode_frames
+        side = contextvars.ContextVar("wire_side", default="?")
+        counts = self.counts = {"silo": [0, 0], "client": [0, 0]}
+        read_batches, decode_frames = self._read, self._decode
+
+        async def read(reader, *args, strict_tail, **kwargs):
+            # a silo's pump reads with a strict tail, a client's without
+            side.set("silo" if strict_tail else "client")
+            async for item in read_batches(reader, *args,
+                                           strict_tail=strict_tail,
+                                           **kwargs):
+                yield item
+
+        def decode(buf, stats=None):
+            consumed, msgs, bounces = decode_frames(buf, stats)
+            c = counts.setdefault(side.get(), [0, 0])
+            c[0] += len(msgs) + len(bounces)
+            c[1] += consumed
+            return consumed, msgs, bounces
+
+        sf._read_frame_batches, sf.decode_frames = read, decode
+        return self
+
+    def __exit__(self, *exc):
+        self._sf._read_frame_batches = self._read
+        self._sf.decode_frames = self._decode
+        return False
+
+    def line(self) -> str:
+        (sf, sb), (cf, cb) = self.counts["silo"], self.counts["client"]
+        return (f"clients and peers sent {sf} frames, {sb} bytes "
+                f"(silos received); silos sent {cf} frames, {cb} bytes "
+                f"(clients received)")
+
+
+class GcPauses:
+    """The garbage collector's pauses inside a window (``gc.callbacks``):
+    after exit, ``count`` and ``longest`` (s) of the full (generation 2)
+    collections and ``total`` (s) of all collections."""
+
+    def __enter__(self):
+        import gc
+        self._gc, self.count, self.longest, self.total = gc, 0, 0.0, 0.0
+        self._t0 = None
+
+        def cb(phase, info):
+            if phase == "start":
+                self._t0 = time.perf_counter()
+            elif self._t0 is not None:
+                dt = time.perf_counter() - self._t0
+                self.total += dt
+                if info.get("generation") == 2:
+                    self.count += 1
+                    self.longest = max(self.longest, dt)
+        self._cb = cb
+        gc.callbacks.append(cb)
+        return self
+
+    def __exit__(self, *exc):
+        self._gc.callbacks.remove(self._cb)
+        return False
+
+    def line(self) -> str:
+        return (f"garbage collector: {self.count} full collections, the "
+                f"longest {self.longest * 1e3:.1f} ms; all collections "
+                f"{self.total:.3f} s")
+
+
+def step_table(label, st, count, ref_label, st_ref, ref_count, card):
+    """Each hosted step of two ``drive_presence`` runs side by side: wall,
+    rate, the part of it that write-behind flushes overlapped and the
+    longest loop stall; then the ``client.call_batch`` batches and
+    summaries that no flush overlapped (their median is the per-call
+    figure the wire's cost reads from)."""
+    calls = 16 * 4096
+    for name, what, per in (
+            ("waves", "msgs", lambda n: 5 * n),
+            ("batch", "calls", lambda n: calls),
+            ("single", "calls", lambda n: 4096 + 1024),
+            ("broadcast", "deliveries", lambda n: n),
+            ("summary", "summaries", lambda n: 64)):
+        parts = []
+        for lab, stats, n in ((label, st, count), (ref_label, st_ref,
+                                                   ref_count)):
+            secs = stats[f"{name}_s"]
+            parts.append(
+                f"{lab} {per(n) / secs:.0f} {what}/sec ({secs:.3f} s, "
+                f"{stats[f'{name}_flush_s']:.3f} s overlapped by flushes, "
+                f"longest loop stall {stats[f'{name}_stall_s'] * 1e3:.1f} "
+                f"ms)")
+        print(f"  {name}: " + "; ".join(parts) + f" on {card}")
+    for lab, stats in ((label, st), (ref_label, st_ref)):
+        for key, what in (("batch_clear_s", "client.call_batch batches"),
+                          ("summary_clear_s", "GameGrain.summary calls")):
+            clear = stats[key]
+            if not clear:
+                print(f"  {lab}: every one of its {what} overlapped a "
+                      f"write-behind flush")
+                continue
+            med = float(np.median(clear))
+            extra = (f" ({4096 / med:.0f} calls/sec, "
+                     f"{med / 4096 * 1e6:.2f} us a call)"
+                     if key == "batch_clear_s" else "")
+            print(f"  {lab}, the {len(clear)} {what} no flush overlapped: "
+                  f"median {med * 1e3:.3f} ms{extra}, min "
+                  f"{min(clear) * 1e3:.3f}, max {max(clear) * 1e3:.3f} ms "
+                  f"on {card}")
+
+
+def drive_gateway(dev, n_players, profile=None):
+    """``presence_torch.drive_presence`` with its client over TCP: every
+    silo the drive builds (8 shards on ``dev``, write-behind every 0.5 s,
+    checkpoints, the default 30 s response timeout, batched egress) is
+    hosted on a new ``SocketFabric`` and joined to a
+    ``FileMembershipTable`` under ``orleans_tpu_torch/_build``, and a
+    ``GatewayClient`` dials each one's gateway anew. Returns (results,
+    stats)."""
+    pt = presence_sample()
+    from orleans_tpu_torch.membership import FileMembershipTable
+    from orleans_tpu_torch.parallel import make_mesh
+    from orleans_tpu_torch.storage import MemoryStorage
+    mesh = make_mesh(SHARDS_B, dev)
+    sched = pt.presence_schedule(n_players, seed=5)
+    root = build_tmpdir("phase_l_")
+    table = FileMembershipTable(os.path.join(root, "membership.json"))
+    ckdir = os.path.join(root, "checkpoints")
+    os.makedirs(ckdir)
+
+    def build(storage, checkpoint_dir):
+        return pt.build_silo(n_players, mesh, storage=storage,
+                             checkpoint_dir=checkpoint_dir,
+                             membership=table)
+
+    try:
+        return asyncio.run(pt.drive_presence(
+            build, pt.gateway_client(), MemoryStorage(),
+            pt.PlayerVectorGrain, pt.GameGrain, sched, ckdir,
+            profile=profile))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def drive_call_batches(dev, n, tcp: bool, batches: int = 16,
+                       batch: int = 4096, seed: int = 5) -> list:
+    """One silo of ``n`` dense PlayerVectorGrains (8 shards on ``dev``,
+    no storage, so no flush overlaps a call) called with ``batches``
+    ``client.call_batch`` of ``batch`` heartbeats from Phase H's schedule,
+    through a ``ClusterClient`` in process or, with ``tcp``, a
+    ``GatewayClient`` over the silo's TCP gateway. Every answer is held
+    against the model; returns each batch's seconds."""
+    pt = presence_sample()
+    from orleans_tpu_torch.membership import FileMembershipTable
+    from orleans_tpu_torch.parallel import make_mesh
+    from orleans_tpu_torch.runtime import ClusterClient
+    sched = pt.presence_schedule(n, seed=seed, batches=batches,
+                                 batch=batch)
+    ks, ps, ds = sched.calls
+    want = pt.PresenceModel(n).apply(ks, ps, ds)
+    root = build_tmpdir("phase_l_calls_")
+
+    async def run():
+        table = FileMembershipTable(os.path.join(root, "membership.json")) \
+            if tcp else None
+        silo = pt.build_silo(n, make_mesh(SHARDS_B, dev), membership=table)
+        await silo.start()
+        client = None
+        try:
+            client = await (pt.gateway_client() if tcp else ClusterClient)(
+                silo.fabric).connect()
+            got, secs = [], []
+            for lo in range(0, ks.size, batch):
+                calls = [(int(k), {"pos": p, "delta": d}) for k, p, d in
+                         zip(ks[lo:lo + batch], ps[lo:lo + batch],
+                             ds[lo:lo + batch])]
+                t0 = time.perf_counter()
+                got += await asyncio.gather(*client.call_batch(
+                    pt.PlayerVectorGrain, "heartbeat", calls))
+                secs.append(time.perf_counter() - t0)
+            pt._check("call_batch", np.asarray(got, np.int64), want)
+            return secs
+        finally:
+            if client is not None:
+                await client.close_async()
+            await silo.stop()
+
+    try:
+        return asyncio.run(run())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def drive_two_gateways(dev, n, calls, seed: int = 11) -> dict:
+    """Phase L2: two silos, each on its own ``SocketFabric`` (a fabric
+    delivers between its own silos in process, so the peer leg crosses
+    TCP only between fabrics), joined to one ``FileMembershipTable``,
+    sharing the card, with ``n`` dense PlayerVectorGrains split by the
+    ring; no write-behind. A ``GatewayClient`` on silo 0's gateway sends
+    ``calls`` heartbeats (keys uniform, numpy ``seed``) as
+    ``client.call_batch`` batches of 4,096 (silo 0 forwards those silo 1
+    owns over the peer socket), one ``broadcast_actors`` to every player
+    (silo 1's partition crosses the peer socket) and a ``reduce_actors``.
+    Every answer, the sum and each silo's rows are held against the numpy
+    model; the heartbeats that reached silo 1 over the wire must be the
+    calls whose key the ring gives silo 1. Returns stats."""
+    pt = presence_sample()
+    from orleans_tpu_torch.core.ids import GrainCategory, GrainId, GrainType
+    from orleans_tpu_torch.core.message import Direction
+    from orleans_tpu_torch.dispatch import add_vector_grains
+    from orleans_tpu_torch.membership import (FileMembershipTable,
+                                              join_cluster)
+    from orleans_tpu_torch.parallel import make_mesh
+    from orleans_tpu_torch.runtime import (GatewayClient, SiloBuilder,
+                                           SocketFabric)
+    Player = pt.PlayerVectorGrain
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, n, calls)
+    pos = rng.random((calls, 2), np.float32).astype(np.float16)
+    delta = rng.integers(1, 4, calls).astype(np.int32)
+    ev_pos, ev_delta = np.array([0.25, 0.75], np.float16), np.int32(2)
+    model = pt.PresenceModel(n)
+    root = build_tmpdir("phase_l2_")
+    st: dict = {}
+    clock = time.perf_counter
+
+    async def run():
+        table = FileMembershipTable(os.path.join(root, "membership.json"))
+        silos = []
+        for i in range(2):
+            b = SiloBuilder().with_name(f"phase-l2-{i}").with_fabric(
+                SocketFabric())
+            add_vector_grains(b, Player, mesh=make_mesh(SHARDS_B, dev),
+                              capacity_per_shard=-(-n // SHARDS_B),
+                              dense={Player: n})
+            silo = b.build()
+            join_cluster(silo, table)
+            silos.append(silo)
+        # the heartbeats and bulk requests (the broadcast's partition, the
+        # reduce) that reach silo 1 over its socket, at its fabric's
+        # batched inbound route
+        arrived = {"heartbeat": 0, "bulk": 0}
+        fab1 = silos[1].fabric
+        route_in = fab1._route_inbound_batch
+
+        def counted(silo, msgs):
+            for m in msgs:
+                if m.direction != Direction.RESPONSE:
+                    if m.method_name == "heartbeat":
+                        arrived["heartbeat"] += 1
+                    elif m.method_name.startswith("__bulk_"):
+                        arrived["bulk"] += 1
+            return route_in(silo, msgs)
+        fab1._route_inbound_batch = counted
+        started, client = [], None
+        try:
+            t0 = clock()
+            for s in silos:
+                await s.start()
+                started.append(s)
+            deadline = clock() + 60
+            while not all(len(s.membership.active) == 2 for s in silos):
+                assert clock() < deadline, "Phase L2: membership split"
+                await asyncio.sleep(0.05)
+            st["start_s"] = clock() - t0
+            client = await GatewayClient(
+                [silos[0].silo_address.endpoint]).connect()
+            ring = silos[0].locator.ring
+            tc = GrainType.of(Player.__name__).type_code
+            owner1 = np.fromiter(
+                (ring.owner(GrainId(GrainCategory.GRAIN, tc, int(k))
+                            .uniform_hash) == silos[1].silo_address
+                 for k in range(n)), bool, n)
+            want = model.apply(keys, pos, delta)
+            got = []
+            t0 = clock()
+            for lo in range(0, calls, 4096):
+                got += await asyncio.gather(*client.call_batch(
+                    Player, "heartbeat",
+                    [(int(k), {"pos": p, "delta": d}) for k, p, d in zip(
+                        keys[lo:lo + 4096], pos[lo:lo + 4096],
+                        delta[lo:lo + 4096])]))
+            st["batch_s"] = clock() - t0
+            pt._check("Phase L2 call_batch", np.asarray(got, np.int64), want)
+            st["forwarded"] = arrived["heartbeat"]
+            st["owned_by_1"] = int(owner1[keys].sum())
+            st["keys_of_1"] = int(owner1.sum())
+            assert st["forwarded"] == st["owned_by_1"], \
+                (f"Phase L2: {st['forwarded']} heartbeats reached silo 1, "
+                 f"the ring gives it {st['owned_by_1']}")
+            t0 = clock()
+            st["delivered"] = int(await client.broadcast_actors(
+                Player, "heartbeat", np.arange(n),
+                {"pos": ev_pos, "delta": ev_delta}))
+            st["broadcast_s"] = clock() - t0
+            st["bulk_to_1"] = arrived["bulk"]
+            model.apply(np.arange(n), np.broadcast_to(ev_pos, (n, 2)),
+                        np.full(n, ev_delta))
+            pt._check("Phase L2 broadcast deliveries", st["delivered"], n)
+            assert st["bulk_to_1"] >= 1, \
+                "Phase L2: no broadcast partition crossed to silo 1"
+            st["score_sum"] = int(np.asarray(
+                await client.reduce_actors(Player, "get_score")))
+            pt._check("Phase L2 reduce_actors", st["score_sum"],
+                      model.score.sum())
+            rows = dense_rows(silos, Player, n)
+            pt._check("Phase L2 scores", rows["score"].astype(np.int64),
+                      model.score)
+            assert (rows["silo"] == owner1.astype(np.int64)).all(), \
+                "Phase L2: a row off its ring owner"
+        finally:
+            if client is not None:
+                await client.close_async()
+            for s in reversed(started):
+                await s.stop()
+
+    try:
+        asyncio.run(run())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return st
+
+
+def phase_l(dev, card, st_h) -> tuple[dict, dict]:
+    """L1: Phase H's drive at N_L players with its client over a TCP
+    gateway (``drive_gateway``), each step beside Phase H's in-process
+    figure (``st_h``, at N_H players), the frames and bytes each side
+    received, the longest loop stall and the device idle share of one
+    profiled ``client.call_batch`` batch. L2: ``drive_two_gateways``.
+    Returns the launch counts after L1 and after L2."""
+    from orleans_tpu_torch.ops import KERNELS
+    pt = presence_sample()
+    windows = {}
+
+    def profile(step):
+        if step != "batch":
+            return contextlib.nullcontext()
+        windows[step] = DeviceWindow()
+        return windows[step]
+
+    t0 = time.perf_counter()
+    with WireCount() as wire, GcPauses() as gc_l1:
+        res, st = drive_gateway(dev, N_L, profile)
+    wall = time.perf_counter() - t0
+    after_l1 = {k.name: k.launches for k in KERNELS}
+    print(f"Phase L1: Presence over a TCP gateway (GatewayClient -> "
+          f"SocketFabric, hotwire frames, batched egress), {N_L} players x "
+          f"{SHARDS_B} shards, off-loop tick, write-behind every 0.5 s, "
+          f"beside Phase H in process at {N_H} players, on {card}; "
+          f"{wall:.3f} s in all")
+    step_table("L1", st, N_L, "H", st_h, N_H, card)
+    # the wire's cost a call: the same batches with no write-behind, in
+    # process and over TCP, in turns (in process, TCP, TCP, in process)
+    runs = [(tcp, drive_call_batches(dev, N_L, tcp))
+            for tcp in (False, True, True, False)]
+    med = {tcp: float(np.median([x for t, r in runs if t == tcp
+                                 for x in r])) / 4096 * 1e6
+           for tcp in (False, True)}
+    print(f"  the wire's cost a call: 16 client.call_batch of 4096 to "
+          f"{N_L} players, no write-behind, in turns (in process, TCP, TCP,"
+          f" in process): median "
+          + ", ".join(f"{np.median(r) / 4096 * 1e6:.2f}" for _, r in runs)
+          + f" us a call; in process {med[False]:.2f}, over TCP "
+          f"{med[True]:.2f} us a call ({1e6 / med[True]:.0f} "
+          f"calls/sec): the wire adds {med[True] - med[False]:.2f} us a "
+          f"call on {card}")
+    w = windows["batch"]
+    print(f"  client.call_batch over TCP, last batch profiled: device busy "
+          f"{w.busy_ms:.4f} ms of {w.wall_ms:.3f} ms wall (idle share "
+          f"{max(0.0, 1 - w.busy_ms / w.wall_ms):.4f}) on {card}")
+    print(f"  wire: {wire.line()}")
+    longest = max(st[f"{s}_stall_s"] for s in
+                  ("waves", "batch", "single", "broadcast", "summary",
+                   "stop"))
+    print(f"  longest event-loop stall {longest * 1e3:.1f} ms; write-behind "
+          f"{st['periodic_flush_rows']} rows periodic in "
+          f"{st['periodic_flush_s']:.3f} s, {st['final_flush_rows']} in the "
+          f"final drain in {st['final_flush_s']:.3f} s; silo.stop "
+          f"{st['stop_s']:.3f} s; checkpoint save {st['save_s']:.3f} s, "
+          f"restore {st['restore_s']:.3f} s (bit for bit); "
+          f"{res['loaded'].size} players reloaded from storage and called "
+          f"again over a new gateway; delivered {res['delivered']}, "
+          f"reduce {res['score_sum']}, join_when {res['joined']} on {card}")
+    print(f"  {gc_l1.line()} (in L1's {wall:.3f} s)")
+    t0 = time.perf_counter()
+    with WireCount() as wire:
+        st2 = drive_two_gateways(dev, N_L2, L2_CALLS)
+    wall = time.perf_counter() - t0
+    after_l2 = {k.name: k.launches for k in KERNELS}
+    print(f"Phase L2: two silos on their own SocketFabrics sharing the "
+          f"card, {N_L2} players split by the ring ({st2['keys_of_1']} on "
+          f"silo 1), the client on silo 0's gateway; {wall:.3f} s in all "
+          f"(start and membership {st2['start_s']:.3f} s) on {card}")
+    print(f"  client.call_batch: {L2_CALLS} heartbeats in batches of 4096, "
+          f"{L2_CALLS / st2['batch_s']:.0f} calls/sec ({st2['batch_s']:.3f} "
+          f"s); {st2['forwarded']} forwarded to silo 1 over its socket == "
+          f"the {st2['owned_by_1']} calls the ring gives it on {card}")
+    print(f"  broadcast_actors: {st2['delivered']} deliveries, "
+          f"{st2['delivered'] / st2['broadcast_s']:.0f}/sec "
+          f"({st2['broadcast_s']:.3f} s), {st2['bulk_to_1']} bulk requests "
+          f"to silo 1 over the wire; reduce_actors sum {st2['score_sum']}; "
+          f"K2 launches in L2 {after_l2['rank_by_dest'] - after_l1['rank_by_dest']}"
+          f"; every answer, the sum and each silo's rows exact on {card}")
+    print(f"  wire: {wire.line()}")
+    return after_l1, after_l2
+
+
+def phase_l_cpu(dev, card, got_i, st_i) -> None:
+    """L1's drive at N_I players over TCP on the card and on the CPU: the
+    two equal exactly, and both equal Phase I's in-process results (the
+    same schedule gives the same answers with or without the wire). The
+    card's steps print beside Phase I's on the card at the same
+    population: the per-call difference is the wire's cost."""
+    got_cuda, st_cuda = drive_gateway(dev, N_I)
+    got_cpu, _ = drive_gateway(torch.device("cpu"), N_I)
+    same_results(got_cuda, got_cpu, "Phase L over TCP, card vs CPU")
+    same_results(got_cuda, got_i, "Phase L over TCP vs Phase I in process")
+    print(f"Phase L: L1's drive at {N_I} players over TCP, card == CPU == "
+          f"Phase I in process, exactly (every answer and the final table);"
+          f" over TCP beside in process, both on the card:")
+    step_table("TCP", st_cuda, N_I, "in process", st_i, N_I, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -2127,10 +2615,10 @@ def main() -> int:
     for k in KERNELS:
         k.launches = 0
     t_hi = time.perf_counter()
-    launches_h = phase_h(dev, card)
+    launches_h, st_h = phase_h(dev, card)
     for name, count in launches_h.items():
         assert count > 0, f"kernel {name} was not launched in Phase H"
-    phase_i(dev)
+    got_i, st_i = phase_i(dev)
     print(f"Phases H and I: {time.perf_counter() - t_hi:.3f} s")
     # Phase J: device streams; every delivery chunk ranks through K2
     for k in KERNELS:
@@ -2152,11 +2640,32 @@ def main() -> int:
     phase_k_cpu(dev)
     print(f"Phase K: {t_kc - t_k:.3f} s, its CPU comparison "
           f"{time.perf_counter() - t_kc:.3f} s")
+    # Phase L: Presence over real TCP gateways; the native codec and loop
+    # runner must be the ones in use. L1's 64 summaries fan in through K1
+    # and its broadcast ranks each of its 64 chunks through K2; L2's
+    # broadcast ranks both silos' chunks
+    native_check()
+    for k in KERNELS:
+        k.launches = 0
+    t_l = time.perf_counter()
+    after_l1, launches_l = phase_l(dev, card, st_h)
+    assert after_l1[SEGMENT_SUM.name] == 64, \
+        f"K1 launched {after_l1[SEGMENT_SUM.name]} times in L1, not 64"
+    assert after_l1[RANK_BY_DEST.name] >= 64, \
+        f"K2 launched {after_l1[RANK_BY_DEST.name]} times in L1"
+    assert launches_l[SEGMENT_SUM.name] == 64
+    assert launches_l[RANK_BY_DEST.name] > after_l1[RANK_BY_DEST.name], \
+        "K2 not launched in Phase L2"
+    t_lc = time.perf_counter()
+    phase_l_cpu(dev, card, got_i, st_i)
+    print(f"Phase L: {t_lc - t_l:.3f} s, its CPU comparison "
+          f"{time.perf_counter() - t_lc:.3f} s")
     print(f"launches on the main path: A-C {launches}, E {launches_e}, "
-          f"G {launches_g}, H {launches_h}, J {launches_j}, K {launches_k}")
+          f"G {launches_g}, H {launches_h}, J {launches_j}, K {launches_k}, "
+          f"L {launches_l}")
     launches = {name: launches[name] + launches_e[name] + launches_g[name]
                 + launches_h[name] + launches_j[name] + launches_k[name]
-                for name in launches}
+                + launches_l[name] for name in launches}
 
     sources = {SEGMENT_SUM.name: ("orleans_tpu/ops/segment_reduce.py:87",
                                   "orleans_tpu_torch/ops/csrc/segment_sum.cu"),

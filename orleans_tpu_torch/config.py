@@ -10,15 +10,13 @@ GrainCollectionOptions — Runtime/Configuration/Options/), the validators
 consumes them fluently (the ``.Configure<XOptions>(...)`` idiom,
 SiloHostBuilder.cs:13).
 
-The port's copy of ``orleans_tpu.config``. It differs in three places:
-``MessagingOptions.batched_egress`` defaults to off, as the port's
-``SiloConfig`` does (``runtime.egress`` is not ported); ``DispatchOptions``
-has no ``exchange_capacity`` (nothing reads it); and ``apply_options``
-raises for a group field whose flat ``SiloConfig`` field is missing
-instead of adding it. Groups whose modules the port does not hold yet
-(metrics, SLO, ledger, OTLP export, worker processes, egress) are copied
-all the same: their flat fields meet ``runtime.silo.UNPORTED_OPTIONS`` at
-``SiloBuilder.build()``.
+The port's copy of ``orleans_tpu.config``. It differs in two places:
+``DispatchOptions`` has no ``exchange_capacity`` (nothing reads it); and
+``apply_options`` raises for a group field whose flat ``SiloConfig`` field
+is missing instead of adding it. Groups whose modules the port does not
+hold yet (metrics, SLO, ledger, OTLP export, worker processes, ingress
+loops, egress shards) are copied all the same: their flat fields meet
+``runtime.silo.UNPORTED_OPTIONS`` at ``SiloBuilder.build()``.
 """
 
 from __future__ import annotations
@@ -93,9 +91,8 @@ class MessagingOptions:
     # batched response egress (runtime.egress flush accumulator +
     # header-prefix wire template): ``batched_egress=False`` restores
     # the per-message send_response → transmit path — the A/B lever
-    # symmetric with ``batched_ingress``. Off in the port, as SiloConfig's:
-    # runtime.egress is not ported (runtime.silo.UNPORTED_OPTIONS)
-    batched_egress: bool = False
+    # symmetric with ``batched_ingress``
+    batched_egress: bool = True
     # off-loop device-tick pipeline (dispatch.engine tick worker):
     # ``offloop_tick=False`` restores the loop-inline tick — the A/B
     # lever paired with ``batched_ingress``

@@ -14,6 +14,14 @@ Differences from the reference, by design:
   - the oracle pushes its merged view to the silo's DistributedLocator
     (ring/directory) and to any ``subscribe``-d listener (reminder service,
     stream balancers) — the SiloStatusChangeNotification fan-out.
+
+The port's copy of ``orleans_tpu.membership.oracle``, with one repair: a
+graceful goodbye writes ShuttingDown, then Dead at the end of the stop
+path (:meth:`MembershipOracle.goodbye`). The reference writes Dead first,
+so over a ``SocketFabric`` its peers dropped every answer to the stopping
+silo, and each directory unregister of its deactivations and its
+partition handoff waited out the response timeout (60 s a stop at the
+default 30 s).
 """
 
 from __future__ import annotations
@@ -133,12 +141,24 @@ class MembershipOracle:
         ]
 
     async def shutdown(self) -> None:
-        """Graceful goodbye: own row → ShuttingDown → Dead, gossip out
-        (Silo stop path)."""
+        """Graceful goodbye, first half: own row → ShuttingDown, gossip out
+        (Silo stop path). Peers drop this silo from their active view and
+        ring (no new placements, no directory partition here) but do not
+        count it dead, so they keep answering it: its deactivations'
+        directory unregisters and its partition handoff get their
+        responses. :meth:`goodbye` writes Dead once those are done."""
         self._stopped = True
         for t in self._tasks:
             t.cancel()
         self._tasks.clear()
+        await self._write_own_status(SiloStatus.SHUTTING_DOWN)
+
+    async def goodbye(self) -> None:
+        """Graceful goodbye, second half: own row → Dead, gossip out (the
+        end of the Silo stop path)."""
+        await self._write_own_status(SiloStatus.DEAD)
+
+    async def _write_own_status(self, status: str) -> None:
         for _ in range(16):
             snap = await self.table.read_all()
             mine = snap.get(self.silo.silo_address)
@@ -146,7 +166,7 @@ class MembershipOracle:
                 break
             e, tag = mine
             e = e.copy()
-            e.status = SiloStatus.DEAD
+            e.status = status
             if await self.table.update_row(e, tag, snap.version.next()):
                 break
         self._gossip_all()

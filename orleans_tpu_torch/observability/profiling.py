@@ -46,8 +46,8 @@ The port's copy of ``orleans_tpu.observability.profiling``, with
 ``jax.profiler`` replaced by ``torch.profiler`` (``TraceAnnotation`` →
 ``record_function``; ``start_trace``/``stop_trace`` → a
 ``torch.profiler.profile`` that writes ``trace.json`` into the log
-directory). The profiler runs its callbacks in Python only: the native
-``hotloop`` runner belongs to the native slice and is not ported.
+directory). Its native ``hotloop`` runner is the port's own build of the
+same C source (``orleans_tpu_torch.native``).
 """
 
 from __future__ import annotations
@@ -59,6 +59,7 @@ import functools
 import inspect
 import logging
 import os
+import sys
 import time
 import weakref
 from collections import deque
@@ -70,6 +71,23 @@ if TYPE_CHECKING:
     from .stats import StatsRegistry
 
 log = logging.getLogger("orleans.profiling")
+
+# native per-callback runner (native/hotloop.c): the same accounting as
+# LoopProfiler._run_cb compiled to C (~0.2us vs ~1.3us per callback).
+# None when the toolchain is unavailable or ORLEANS_TPU_NATIVE=0 — the
+# pure-Python path below is the behavioural reference and the fallback.
+# Linux-only: the C side stamps CLOCK_MONOTONIC, which shares a base
+# with time.perf_counter ONLY on Linux — on e.g. macOS the two clocks
+# diverge by cumulative system-sleep time, and the Python slow paths
+# (flush/finalize/profile) compare perf_counter against C-written marks.
+try:
+    if sys.platform.startswith("linux"):
+        from ..native import load as _load_native
+        _hotloop = _load_native("_hotloop")
+    else:
+        _hotloop = None
+except Exception:  # noqa: BLE001 — native must never break import
+    _hotloop = None
 
 __all__ = ["Profiler", "annotate", "traced", "StepTimer",
            "LoopProfiler", "LOOP_CATEGORIES", "LOOP_CATEGORY",
@@ -462,6 +480,50 @@ class LoopProfiler:
         return out
 
 
+class _NativeLoopProfiler(LoopProfiler):
+    """LoopProfiler whose per-callback hot path runs in C
+    (native/hotloop.c). The C ``Runner`` owns the hot state — attribution
+    boundary, open-window category dict, top-K admission bar, depth/
+    closed flags — and every Python slow path (window finalize, trigger,
+    flush, enter/exit) keeps working unchanged through the delegating
+    properties installed below, which read and write the very same C
+    struct members. Semantics are identical to the pure-Python parent
+    (the behavioural reference, still exercised by the unit tests and
+    the ``ORLEANS_TPU_NATIVE=0`` fallback)."""
+
+    __slots__ = ("_c",)
+
+    def __init__(self, *args, **kwargs):
+        # the runner must exist BEFORE the parent __init__ writes state
+        # through the delegating properties
+        object.__setattr__(self, "_c", _hotloop.Runner(LOOP_CATEGORY, self))
+        super().__init__(*args, **kwargs)
+
+    def _entry(self):
+        return self._c  # the Runner IS the scheduled callable
+
+    def set_category(self, category: str, label=None) -> None:
+        self._c.set_category(category, label)
+
+
+def _delegate(cname: str) -> property:
+    return property(lambda self, _n=cname: getattr(self._c, _n),
+                    lambda self, v, _n=cname: setattr(self._c, _n, v))
+
+
+for _name, _cname in (("window", "window"), ("closed", "closed"),
+                      ("_win_start", "win_start"), ("_win_cats", "win_cats"),
+                      ("_top_min", "top_min"), ("_last_end", "last_end"),
+                      ("_depth", "depth"), ("_mark", "mark"),
+                      ("_cur", "cur"), ("_cb_label", "cb_label")):
+    setattr(_NativeLoopProfiler, _name, _delegate(_cname))
+del _name, _cname
+
+
+def _profiler_class() -> type[LoopProfiler]:
+    return LoopProfiler if _hotloop is None else _NativeLoopProfiler
+
+
 # one interposition per loop, refcounted: loop -> [refs, profiler,
 # originals]. Weakly keyed: a loop abandoned without uninstall (a silo
 # that died mid-start, a test loop dropped on the floor) must not leave
@@ -504,10 +566,10 @@ def install_loop_profiler(loop, *, window: float = 1.0, ring: int = 120,
     if ent is not None:
         ent[0] += 1
         return ent[1]
-    prof = LoopProfiler(window=window, ring=ring, top_k=top_k,
+    prof = _profiler_class()(window=window, ring=ring, top_k=top_k,
                              trigger_interval=trigger_interval)
-    # the ONE entry callable every schedule reuses (the bound _run_cb):
-    # scheduling it with the real
+    # the ONE entry callable every schedule reuses (the C Runner when
+    # native, the bound _run_cb otherwise): scheduling it with the real
     # callback as its first argument costs no closure/partial allocation
     # per callback (the dominant interposition tax otherwise).
     # call_soon/call_soon_threadsafe prepend it via a C-level

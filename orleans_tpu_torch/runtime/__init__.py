@@ -1,6 +1,6 @@
 """Host-tier runtime: silo, catalog, dispatcher, grain API (the port of
-``orleans_tpu.runtime`` for in-proc silos: the socket fabric, the gateway
-client, multi-process and multi-loop silos are not ported)."""
+``orleans_tpu.runtime``: in-proc and TCP socket fabrics with the gateway
+client; multi-process and multi-loop silos are not ported)."""
 
 from .activation import ActivationData, ActivationState  # noqa: F401
 from .cancellation import (  # noqa: F401
@@ -8,6 +8,7 @@ from .cancellation import (  # noqa: F401
     GrainCancellationTokenSource,
 )
 from .cluster import ClusterClient, InProcFabric  # noqa: F401
+from .socket_fabric import GatewayClient, SocketFabric  # noqa: F401
 from .context import RequestContext  # noqa: F401
 from .grain import (  # noqa: F401
     Grain,

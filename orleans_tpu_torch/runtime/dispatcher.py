@@ -13,7 +13,11 @@ thread loop; forwarding/re-addressing reuses the same ``send_message`` path.
 
 The port's copy of ``orleans_tpu.runtime.dispatcher``: the bulk
 join's and the reduce finalizer's ``jax.tree_util`` walks are the
-port engine's tree helpers (``_leaves``, ``_tree_map``, ``_tree_map2``).
+port engine's tree helpers (``_leaves``, ``_tree_map``, ``_tree_map2``);
+a system-target request whose target is gone is rejected at once; and
+batched gateway ingress for a device-tier key a peer owns is sent
+straight to its ring owner, in arrival order
+(:meth:`Dispatcher.receive_vector_batch`).
 """
 
 from __future__ import annotations
@@ -475,12 +479,16 @@ class Dispatcher:
                 ring.owner(msg.target_grain.uniform_hash)
             if owner is not None and owner != my_addr:
                 if msg.target_silo is None or msg.target_silo != my_addr:
-                    # unaddressed gateway ingress: address like the
-                    # per-frame _route (send_message, no forward budget
-                    # burned in steady state)
+                    # unaddressed gateway ingress: the ring owner IS the
+                    # key's address, so send it there at once, in arrival
+                    # order (no forward budget burned). Addressing it
+                    # through send_message's directory lookup instead
+                    # sent a key's first calls after an async directory
+                    # hop and its later ones from the cache, so a later
+                    # call could overtake an earlier one.
                     try:
-                        msg.target_silo = None
-                        self.send_message(msg)
+                        msg.target_silo = owner
+                        self.transmit(msg)
                     except Exception:  # noqa: BLE001 — one message only
                         log.exception("batched vector re-address failed "
                                       "for %s", msg.method_name)

@@ -14,8 +14,7 @@ device collectives (parallel.transport) instead of either.
 The port's copy of ``orleans_tpu.runtime.silo``. The options whose modules
 the port does not hold yet are refused when the silo is built
 (:data:`UNPORTED_OPTIONS`, ``NotImplementedError`` naming the module and
-its ROADMAP item), and ``batched_egress`` defaults to off: the egress
-batcher is not ported, and results are the same either way.
+its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -59,7 +58,8 @@ __all__ = ["SiloConfig", "Silo", "SiloBuilder", "ServiceLifecycleStage",
 # module inside start()
 UNPORTED_OPTIONS = (
     ("worker_procs", lambda v: v > 1, "runtime/multiproc.py", 16),
-    ("batched_egress", bool, "runtime/egress.py", 16),
+    ("ingress_loops", lambda v: v > 1, "runtime/multiloop.py", 16),
+    ("egress_shards", lambda v: v > 0, "runtime/multiloop.py", 16),
     ("metrics_enabled", bool, "observability/metrics.py", 17),
     ("metrics_port", lambda v: v is not None, "observability/metrics.py", 17),
     ("slo_enabled", bool, "observability/slo.py", 17),
@@ -200,9 +200,8 @@ class SiloConfig:
     # per destination (header-prefix template on the native build),
     # instead of N per-message send_response → transmit hops. Off = the
     # per-message response path bit for bit (the A/B lever; wire bytes
-    # are identical either way). Off in the port: runtime.egress is not
-    # ported (UNPORTED_OPTIONS)
-    batched_egress: bool = False
+    # are identical either way)
+    batched_egress: bool = True
     # off-loop device-tick pipeline (dispatch.engine): the staging fill,
     # operand upload, kernel dispatch, and host materialize sync of every
     # vector tick run on a dedicated worker thread behind a tick-
@@ -1203,6 +1202,10 @@ class Silo:
                 r = stop()
                 if asyncio.iscoroutine(r):
                     await r
+            if self.membership is not None:
+                # the goodbye's second half: peers answered our
+                # unregisters and handoff while we were ShuttingDown
+                await self.membership.goodbye()
         # background notification/retry tasks must not outlive the runtime
         for t in list(getattr(self, "_journal_notify_tasks", ())):
             t.cancel()

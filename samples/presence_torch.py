@@ -20,13 +20,17 @@ in an in-proc silo on PyTorch:
 
 Run: ``python samples/presence_torch.py`` on a CUDA card, or
 ``python samples/presence_torch.py --cpu`` to run the plain versions on
-the CPU.
+the CPU. ``--tcp`` hosts the silo on a ``SocketFabric`` and calls it from
+a ``GatewayClient`` over a real TCP gateway (the path of a client in its
+own process), e.g. ``python samples/presence_torch.py --cpu --tcp
+--players 20000``.
 """
 
 import argparse
 import asyncio
 import os
 import sys
+import tempfile
 import time
 from contextlib import nullcontext
 from types import SimpleNamespace
@@ -43,10 +47,16 @@ from orleans_tpu_torch.dispatch import (  # noqa: E402
 )
 from orleans_tpu_torch.ops import segment_sum  # noqa: E402
 from orleans_tpu_torch.parallel import make_mesh  # noqa: E402
+from orleans_tpu_torch.membership import (  # noqa: E402
+    FileMembershipTable,
+    join_cluster,
+)
 from orleans_tpu_torch.runtime import (  # noqa: E402
     ClusterClient,
+    GatewayClient,
     Grain,
     SiloBuilder,
+    SocketFabric,
 )
 from orleans_tpu_torch.storage import MemoryStorage  # noqa: E402
 
@@ -124,10 +134,14 @@ class GameGrain(Grain):
 
 
 def build_silo(n_players: int, mesh, storage=None, flush_period=0.5,
-               checkpoint_dir=None, **config):
+               checkpoint_dir=None, membership=None, **config):
     """A silo hosting ``n_players`` dense PlayerVectorGrains on ``mesh``
-    beside the GameGrain host grain."""
+    beside the GameGrain host grain. With a ``membership`` table the silo
+    is built on a new ``SocketFabric`` (its own TCP listener and gateway)
+    and joined to the table."""
     b = SiloBuilder().with_name("presence-torch").add_grains(GameGrain)
+    if membership is not None:
+        b.with_fabric(SocketFabric())
     if config:
         b.with_config(**config)
     add_vector_grains(b, PlayerVectorGrain,
@@ -135,7 +149,21 @@ def build_silo(n_players: int, mesh, storage=None, flush_period=0.5,
                       capacity_per_shard=-(-n_players // mesh.n_shards),
                       storage=storage, flush_period=flush_period,
                       checkpoint_dir=checkpoint_dir)
-    return b.build()
+    silo = b.build()
+    if membership is not None:
+        join_cluster(silo, membership)
+    return silo
+
+
+def gateway_client(gateway_cls=GatewayClient, response_timeout=30.0):
+    """A ``client_cls`` for :func:`drive_presence` that dials
+    ``gateway_cls`` (the ``GatewayClient`` of either package) to the
+    gateway of the silo on the ``SocketFabric`` it is given, so the same
+    drive runs over TCP; each silo the drive builds is dialled anew."""
+    def dial(fabric):
+        return gateway_cls([fabric.local_address().endpoint],
+                           response_timeout=response_timeout)
+    return dial
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +260,8 @@ async def drive_presence(build, client_cls, storage, player, game, sched,
 
     ``build(storage, checkpoint_dir)`` makes an unstarted silo hosting
     ``player`` (dense over ``sched.n`` keys) and the host grain ``game``;
-    ``client_cls`` connects to its fabric. In order: (1) bulk waves
+    ``client_cls(silo.fabric)`` is a client of it (``ClusterClient`` in
+    process, :func:`gateway_client` over TCP). In order: (1) bulk waves
     through ``silo.vector.call_batch`` with a dense plan; (2)
     ``client.call_batch`` heartbeats, one batch awaited at a time; (3)
     concurrent single heartbeats then ``whereis`` reads; (4)
@@ -451,11 +480,20 @@ async def drive_presence(build, client_cls, storage, player, game, sched,
     return res, st
 
 
-async def main(n_players: int, device) -> None:
+async def main(n_players: int, device, tcp: bool = False) -> None:
+    if not tcp:
+        return await _main(n_players, device, None)
+    with tempfile.TemporaryDirectory(prefix="presence-") as tmp:
+        await _main(n_players, device, FileMembershipTable(
+            os.path.join(tmp, "membership.json")))
+
+
+async def _main(n_players: int, device, membership) -> None:
     silo = build_silo(n_players, make_mesh(8, device),
-                      storage=MemoryStorage())
+                      storage=MemoryStorage(), membership=membership)
     await silo.start()
-    client = await ClusterClient(silo.fabric).connect()
+    client_cls = ClusterClient if membership is None else gateway_client()
+    client = await client_cls(silo.fabric).connect()
     try:
         # --- bulk heartbeat waves: the device-tier hot path -------------
         rt = silo.vector
@@ -493,5 +531,7 @@ if __name__ == "__main__":
     ap.add_argument("--players", type=int, default=100_000)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the CUDA card)")
+    ap.add_argument("--tcp", action="store_true",
+                    help="call the silo through a GatewayClient over TCP")
     a = ap.parse_args()
-    asyncio.run(main(a.players, "cpu" if a.cpu else None))
+    asyncio.run(main(a.players, "cpu" if a.cpu else None, a.tcp))

@@ -6,9 +6,8 @@ the JAX package on the same calls, on the CPU.
 Each case of ``TestVectorCheckpointer``/``TestVectorStorageBridge`` runs
 on the port; where the JAX package runs the same case, the results and
 the tables it leaves (the sink row left out) must be equal. Records that
-the JAX package's bridge stored load in the port's bridge: they cross as
-values (decoded by the JAX package, re-encoded by the port's pickle-only
-serializer). Tolerance: exact.
+the JAX package's bridge stored load in the port's bridge as they are
+(the port decodes the JAX package's hotwire frames). Tolerance: exact.
 """
 
 import asyncio
@@ -19,11 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-import orleans_tpu.core.serialization as jser
 import orleans_tpu.dispatch as jd
 import orleans_tpu.storage as js
 from orleans_tpu.parallel import make_mesh as j_mesh
-import orleans_tpu_torch.core.serialization as tser
 import orleans_tpu_torch.dispatch as td
 import orleans_tpu_torch.runtime as tr
 import orleans_tpu_torch.storage as ts
@@ -295,12 +292,11 @@ class TestVectorStorageBridge:
         _bump_all(jrt, 16, 6.5, JCounterGrain)
         assert await js.VectorStorageBridge(
             jrt, JCounterGrain, jstore).flush(range(16)) == 16
-        # the JAX package's blobs may be native hotwire frames, which the
-        # port refuses; they cross as values
+        # the JAX package's blobs (native hotwire frames where the codec
+        # is built) load in the port as they are, byte for byte
         tstore = ts.MemoryStorage()
-        for key, (blob, etag) in jstore._data.items():
-            tstore._data[key] = (tser.serialize(jser.deserialize(blob)),
-                                 etag)
+        tstore._data.update(jstore._data)
+        assert all(isinstance(b, bytes) for b, _ in tstore._data.values())
         rt = _runtime(16)
         loaded = await ts.VectorStorageBridge(
             rt, TCounterGrain, tstore).load(range(16))

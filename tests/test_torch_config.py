@@ -5,11 +5,11 @@ The cases of tests/test_config.py run against both packages with the same
 inputs: every validator rejects what the reference's rejects, with the
 same message, and ``flatten``/``apply_options``/``with_options`` give the
 same flat ``SiloConfig``, field for field. Tolerance: exact (the values are
-the inputs). The port differs on purpose in three places, each tested
-here: ``MessagingOptions.batched_egress`` and ``SiloConfig.batched_egress``
-default to off (the egress batcher is not ported), ``DispatchOptions`` has
-no ``exchange_capacity``, and a group whose module is not ported is
-accepted by ``with_options`` and refused by ``build()``.
+the inputs). The port differs on purpose in two places, each tested here:
+``DispatchOptions`` has no ``exchange_capacity``, and a group whose module
+is not ported is accepted by ``with_options`` and refused by ``build()``.
+``batched_egress`` defaults to on in both packages (the egress batcher is
+ported).
 """
 
 import dataclasses
@@ -33,8 +33,9 @@ T = SimpleNamespace(name="torch", c=tc, err=te.ConfigurationError, rt=tr,
                     silo=tsilo)
 PKGS = pytest.mark.parametrize("pkg", [J, T], ids=["jax", "torch"])
 
-# SiloConfig fields whose defaults differ on purpose (see the docstring)
-DIVERGENT = {"batched_egress"}
+# SiloConfig fields whose defaults differ on purpose (none since the
+# egress batcher is ported)
+DIVERGENT: set = set()
 
 
 def _flat(cfg) -> dict:
@@ -235,17 +236,24 @@ def test_dispatch_options_consumed_by_vector_runtime():
 
 
 def test_messaging_batched_egress_defaults_off_in_port():
+    """(Named for the divergence it used to hold.) The port's default is
+    now the reference's, on, in the options group and the flat config
+    alike, and a silo builds with it and with it off."""
     assert jc.MessagingOptions().batched_egress is True
-    assert tc.MessagingOptions().batched_egress is False
+    assert tc.MessagingOptions().batched_egress is True
     cfg = tr.SiloBuilder().with_options(tc.MessagingOptions(
         response_timeout=2.0)).config
-    assert cfg.batched_egress is False
-    tr.SiloBuilder().with_options(tc.MessagingOptions()).build()
+    assert cfg.batched_egress is True
+    assert tr.SiloBuilder().with_options(
+        tc.MessagingOptions()).build().message_center.egress is not None
+    assert tr.SiloBuilder().with_options(tc.MessagingOptions(
+        batched_egress=False)).build().message_center.egress is None
 
 
 UNPORTED = [
     (tc.MessagingOptions, {"worker_procs": 2}, "multiproc"),
-    (tc.MessagingOptions, {"batched_egress": True}, "egress"),
+    (tc.MessagingOptions, {"ingress_loops": 2}, "multiloop"),
+    (tc.MessagingOptions, {"egress_shards": 1}, "multiloop"),
     (tc.MetricsOptions, {"enabled": True}, "metrics"),
     (tc.MetricsOptions, {"port": 0}, "metrics"),
     (tc.SloOptions, {"enabled": True}, "slo"),
@@ -274,5 +282,4 @@ def test_log_options_dumps_every_field(caplog):
     j, t = _both(run)
     assert "MessagingOptions.response_timeout = 30.0" in t
     assert "MembershipOptions.votes_needed = 2" in t
-    assert [m for m in j if "batched_egress" not in m] == \
-        [m for m in t if "batched_egress" not in m]
+    assert j == t

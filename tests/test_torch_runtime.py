@@ -6,12 +6,12 @@ must return the same values and store the same state; the options whose
 modules the port does not hold yet are refused when the silo is built;
 a profiled hosted silo books the off-loop worker's completions to
 ``tick_schedule``; a traced hosted silo records the JAX package's span
-kinds; the serializer copies tensors and speaks pickle only.
+kinds; the serializer copies tensors, reads and writes the JAX package's
+hotwire frames byte for byte and refuses a tensor on the wire.
 Every async body runs under ``asyncio.wait_for(..., 30)``.
 """
 
 import asyncio
-import os
 
 import numpy as np
 import pytest
@@ -136,7 +136,8 @@ class _Replicated(tr.Grain):
 
 @pytest.mark.parametrize("option, value, module", [
     ("worker_procs", 2, "runtime/multiproc.py"),
-    ("batched_egress", True, "runtime/egress.py"),
+    ("ingress_loops", 2, "runtime/multiloop.py"),
+    ("egress_shards", 1, "runtime/multiloop.py"),
     ("metrics_enabled", True, "observability/metrics.py"),
     ("metrics_port", 0, "observability/metrics.py"),
     ("slo_enabled", True, "observability/slo.py"),
@@ -287,28 +288,46 @@ def test_torch_profiler_capture(tmp_path):
     assert "orleans-span" in {e.key for e in prof.last.key_averages()}
 
 
-def test_serializer_copies_tensors_and_speaks_pickle_only():
+@pytest.mark.skipif(tser._hotwire is None or jser._hotwire is None,
+                    reason="native toolchain unavailable")
+def test_serializer_copies_tensors_and_reads_and_writes_hotwire_frames():
     t = torch.arange(4)
     copied = tser.deep_copy({"t": t, "a": np.arange(3)})
     copied["t"][0] = 9
     assert int(t[0]) == 0  # the caller's tensor is not aliased
     a = np.arange(3)
     assert tser.deep_copy(a) is a  # numpy payloads pass by value contract
-    value = {"k": [1, 2.5, "x"], "a": np.arange(4, dtype=np.int32)}
-    back = tser.deserialize(tser.serialize(value))
-    assert back["k"] == value["k"] and np.array_equal(back["a"], value["a"])
-    # a frame of the JAX package's native codec is refused, not misread
-    frame = jser.serialize(value)
-    if frame[:1] == b"\xa7":
-        with pytest.raises(ValueError, match="hotwire"):
-            tser.deserialize(frame)
-    else:
-        assert tser.deserialize(frame)["k"] == value["k"]
-    with pytest.raises(ValueError, match="hotwire"):
-        tser.deserialize(b"\xa7" + os.urandom(8))
+    from orleans_tpu.core.ids import GrainId as JGrainId
+    from orleans_tpu.core.ids import GrainType as JGrainType
+    from orleans_tpu_torch.core.ids import GrainId, GrainType
+    jg = JGrainId.for_grain(JGrainType.of("HelloGrain"), 7)
+    tg = GrainId.for_grain(GrainType.of("HelloGrain"), 7)
+    value = {"k": [1, 2.5, "x", None, (True, b"b")],
+             "a": np.arange(4, dtype=np.int32), "s": np.float32(1.5)}
+    # the port reads the JAX package's 0xA7 frames of builtins, numpy
+    # values and ids ...
+    frame = jser.serialize({**value, "g": jg})
+    assert frame[:1] == b"\xa7"
+    back = tser.deserialize(frame)
+    assert back["k"] == value["k"] and back["s"] == value["s"]
+    assert np.array_equal(back["a"], value["a"])
+    assert type(back["g"]) is GrainId and back["g"] == tg
+    assert back["g"].uniform_hash == jg.uniform_hash
+    # ... and writes the same bytes, which the JAX package reads
+    mine = tser.serialize({**value, "g": tg})
+    assert mine == frame
+    assert type(jser.deserialize(mine)["g"]) is JGrainId
+    # durable blobs stay pickle, readable by either package
+    blob = tser.serialize_portable(value)
+    assert blob[:1] == b"\x80"
+    assert jser.deserialize(blob)["k"] == value["k"]
     # the wire allowlist names the port, not the JAX package
     assert "orleans_tpu_torch" in tser._wire_allowlist
     assert not {"orleans_tpu", "jax", "jaxlib"} & tser._wire_allowlist
+    # a torch tensor is refused at encode, naming its type
+    for enc in (tser.serialize, tser.serialize_portable):
+        with pytest.raises(tser.WireTypeError, match="torch.Tensor"):
+            enc({"x": [torch.ones(2)]})
 
 
 def test_adaptive_cache_drops_one_access_mark_at_its_bound():
