@@ -77,12 +77,29 @@ the script exits non-zero without its result line):
    the peer socket, counted exactly), a broadcast whose partition crosses
    to silo 1, a reduce; then L1's drive at 20,000 players over TCP on the
    card and on the CPU, equal to each other and to Phase I.
+15. Phase M: multi-process and multi-loop silos with the observability
+   stack (metrics with ``GET /metrics`` and the OTLP push, the cost
+   ledger, the SLO monitor, tracing with an OTLP sink, all sending to an
+   HTTP receiver on 127.0.0.1 inside the script). M1: a
+   ``worker_procs=2`` silo with 1,048,576 players on the card, whose
+   owner forks its workers after its tables are on the card; two
+   ``GatewayClient``s, one on each worker, send 65,536 heartbeats that
+   cross the workers' shared-memory rings into the owner's engine; every
+   answer against the model, the rings drained, the ring-staged messages
+   equal to the calls, every worker's CUDA uninitialized, the ledger's
+   per-worker rows, one ``/metrics`` scrape and the receiver's batches
+   checked. M2: L1's drive without write-behind through a silo of two
+   ingress loops and two egress shards (K1 in each of the 64 summaries,
+   K2 in each broadcast chunk), every ingress shard pumping and every
+   egress shard encoding; then M1's heartbeats and M2's drive at 20,000
+   players on the card and on the CPU, equal to each other, and M2 equal
+   to Phase I on its steps.
 
 Phase H runs at 262,144 players (L1 runs its drive at full width). The
 launch counts are set to 0 just before Phase A and read just after Phase
-C, and again around Phases E, G, H, J, K and L: a kernel of a path that
-was not launched fails the run (A-C launch both kernels, G, J and K
-launch K2, H and L both; E's tick uses neither). The last two lines are
+C, and again around Phases E, G, H, J, K, L and M: a kernel of a path
+that was not launched fails the run (A-C launch both kernels, G, J and K
+launch K2, H, L and M both; E's tick uses neither). The last two lines are
 the ``kernels`` JSON (launches summed over those runs, errors and times
 in ms) and ``{"ok": true, "device": ...}``.
 """
@@ -127,6 +144,9 @@ K_FAILOVER = 4096  # Phase K: the dead silo's keys read back
 N_L = 1 << 20  # Phase L1: Presence over a TCP gateway, Phase E's population
 N_L2 = 1 << 20  # Phase L2: players of the two silos over TCP
 L2_CALLS = 65536  # Phase L2: heartbeats through silo 0's gateway
+N_M = 1 << 20  # Phase M: players of the multi-process and multi-loop silos
+M_CALLS = 65536  # Phase M1: heartbeats through the workers' rings
+M_CALLS_CPU = 16384  # Phase M1 at N_I players, card against the CPU
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2553,6 +2573,404 @@ def phase_l_cpu(dev, card, got_i, st_i) -> None:
     step_table("TCP", st_cuda, N_I, "in process", st_i, N_I, card)
 
 
+# ---------------------------------------------------------------------------
+# Phase M: multi-process and multi-loop silos with the observability stack
+# ---------------------------------------------------------------------------
+
+class OtlpReceiver:
+    """A stdlib HTTP receiver on 127.0.0.1:0, in a thread, that answers
+    every POST 200 and counts them by path (``posts[path]`` = [batches,
+    bytes]): the collector the OTLP trace and metrics sinks of Phase M
+    send to."""
+
+    def __enter__(self):
+        import http.server
+        import threading
+        posts = self.posts = {}
+        lock = threading.Lock()
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 — http.server API
+                n = int(self.headers.get("Content-Length", 0))
+                body = self.rfile.read(n)
+                with lock:
+                    c = posts.setdefault(self.path, [0, 0])
+                    c[0] += 1
+                    c[1] += len(body)
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self._server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                       Handler)
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        name="otlp-receiver", daemon=True)
+        self._thread.start()
+        return self
+
+    def url(self, path: str) -> str:
+        return f"http://127.0.0.1:{self._server.server_address[1]}{path}"
+
+    def __exit__(self, *exc):
+        self._server.shutdown()
+        self._server.server_close()
+        self._thread.join(10)
+        assert not self._thread.is_alive(), "OTLP receiver did not stop"
+        return False
+
+
+def m_config(recv: OtlpReceiver) -> dict:
+    """Phase M's observability stack: metrics with the Prometheus endpoint
+    on an ephemeral port and the OTLP metrics push, the cost ledger, the
+    SLO monitor, and tracing (1% of silo-rooted calls) with its OTLP
+    sink, both sinks sending to ``recv``."""
+    return dict(metrics_enabled=True, metrics_port=0,
+                metrics_sample_period=0.5,
+                metrics_otlp_endpoint=recv.url("/v1/metrics"),
+                metrics_otlp_period=0.5,
+                ledger_enabled=True, slo_enabled=True,
+                trace_enabled=True, trace_sample_rate=0.01,
+                trace_otlp_endpoint=recv.url("/v1/traces"))
+
+
+class LoopStalls:
+    """The event loop's stalls longer than 20 ms while it runs (a task
+    that wakes every 5 ms): ``longest`` (s) after ``stop()``."""
+
+    def __init__(self):
+        self.longest, self._task = 0.0, None
+
+    def start(self):
+        async def watch():
+            last = time.perf_counter()
+            while True:
+                await asyncio.sleep(0.005)
+                now = time.perf_counter()
+                if now - last > 0.02:
+                    self.longest = max(self.longest, now - last)
+                last = now
+        self._task = asyncio.get_running_loop().create_task(watch())
+
+    def stop(self):
+        self._task.cancel()
+
+
+async def dial_worker_clients(silo, want: int = 2, tries: int = 16) -> list:
+    """``GatewayClient``s dialled to the silo's advertised SO_REUSEPORT
+    endpoint until ``want`` of them sit on different worker processes
+    (the kernel picks the worker a connection lands on); the others are
+    closed. Returns one client a worker."""
+    from orleans_tpu_torch.runtime import GatewayClient
+    relays = silo.fabric.route_relays
+    by_worker, extra = {}, []
+    try:
+        for _ in range(tries):
+            c = await GatewayClient([silo.gateway_endpoint]).connect()
+            deadline = time.perf_counter() + 10
+            while c.silo_address not in relays:  # the worker's route+
+                assert time.perf_counter() < deadline, \
+                    "Phase M1: a client route never reached the owner"
+                await asyncio.sleep(0.005)
+            ep = relays[c.silo_address]
+            if ep in by_worker:
+                extra.append(c)
+            else:
+                by_worker[ep] = c
+            if len(by_worker) == want:
+                break
+        assert len(by_worker) == want, \
+            f"Phase M1: {tries} connections landed on {len(by_worker)} worker"
+    finally:
+        for c in extra:
+            await c.close_async()
+    return list(by_worker.values())
+
+
+def drive_workers(dev, n, calls, recv, seed: int = 13) -> tuple:
+    """Phase M1: a ``worker_procs=2`` silo (8 shards of ``n`` dense
+    PlayerVectorGrains on ``dev`` in the owner, which forks its two
+    workers at start) with Phase M's observability stack. Two
+    ``GatewayClient``s, one on each worker, send ``calls`` heartbeats
+    (keys uniform, numpy ``seed``; client c calls the keys with ``key % 2
+    == c``, so no key crosses clients) as ``client.call_batch`` batches
+    of 4,096, both clients at once; each call crosses its worker's
+    staging ring into the owner's ``call_packed`` and its answer comes
+    back on the response ring. Every answer is held against the numpy
+    model, and the rings, the workers' CUDA state, the ledger's
+    per-worker rows and charged tick walls, one ``/metrics`` scrape and
+    the OTLP receiver are checked. Returns (answers, stats)."""
+    import urllib.request
+    pt = presence_sample()
+    from orleans_tpu_torch.membership import FileMembershipTable
+    from orleans_tpu_torch.observability.stats import RING_STATS
+    from orleans_tpu_torch.parallel import make_mesh
+    Player = pt.PlayerVectorGrain
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, n, calls)
+    pos = rng.random((calls, 2), np.float32).astype(np.float16)
+    delta = rng.integers(1, 4, calls).astype(np.int32)
+    model = pt.PresenceModel(n)
+    parts = [np.flatnonzero(keys % 2 == c) for c in (0, 1)]
+    want = [model.apply(keys[p], pos[p], delta[p]) for p in parts]
+    root = build_tmpdir("phase_m1_")
+    st: dict = {}
+    clock = time.perf_counter
+
+    async def run():
+        table = FileMembershipTable(os.path.join(root, "membership.json"))
+        t0 = clock()
+        silo = pt.build_silo(n, make_mesh(SHARDS_B, dev), membership=table,
+                             worker_procs=2, **m_config(recv))
+        ticks: list = []  # each device tick's wall the ledger was charged
+        charge = silo.ledger.charge_tick
+
+        def charged(payload):
+            ticks.append(payload[3])
+            charge(payload)
+        silo.ledger.charge_tick = charged
+        await silo.start()
+        st["start_s"] = clock() - t0
+        sup = silo.workers
+        clients, stalls = [], LoopStalls()
+        try:
+            clients = await dial_worker_clients(silo)
+            clients[0].enable_tracing(sample_rate=0.01,
+                                      name="phase-m1-client",
+                                      otlp_endpoint=recv.url("/v1/traces"))
+
+            async def send(c):
+                got, p = [], parts[c]
+                for lo in range(0, p.size, 4096):
+                    q = p[lo:lo + 4096]
+                    got += await asyncio.gather(*clients[c].call_batch(
+                        Player, "heartbeat",
+                        [(int(k), {"pos": ps, "delta": d}) for k, ps, d in
+                         zip(keys[q], pos[q], delta[q])]))
+                return np.asarray(got, np.int64)
+
+            stalls.start()
+            t0 = clock()
+            got = await asyncio.gather(send(0), send(1))
+            st["calls_s"] = clock() - t0
+            stalls.stop()
+            st["stall_s"] = stalls.longest
+            for c in (0, 1):
+                pt._check(f"Phase M1 client {c} call_batch", got[c],
+                          want[c])
+            d = sup.describe()
+            st["describe"] = d
+            for w in d["workers"]:
+                assert w["alive"], ("Phase M1: a worker died", d)
+                assert w["req_pushed"] == w["req_drained"] and \
+                    w["resp_pushed"] == w["resp_drained"], \
+                    ("Phase M1: a ring did not drain", d)
+                assert w["req_pushed"] > 0, ("Phase M1: an idle worker", d)
+                assert w["cuda_initialized"] is False, \
+                    ("Phase M1: CUDA started in a worker", d)
+            staged = sum(w["req_pushed"] for w in d["workers"])
+            assert staged == calls, \
+                f"Phase M1: {staged} ring-staged messages for {calls} calls"
+            assert not silo.fabric.client_routes, \
+                "Phase M1: the owner holds a client route"
+            assert len(silo.fabric.route_relays) == len(clients)
+            procs = {o: list(r) for o, r in silo.ledger.procs.items()}
+            st["procs"] = procs
+            for w in d["workers"]:
+                rows, secs = procs[f"worker-{w['index']}"]
+                assert rows == w["req_pushed"] and secs > 0, \
+                    ("Phase M1: the ledger's worker rows", procs, d)
+            st["ticks"], st["tick_s"] = len(ticks), sum(ticks)
+            st["row_s"] = silo.ledger.total_row_seconds()
+            assert 0 < st["tick_s"] <= st["calls_s"], \
+                (f"Phase M1: the ledger charged {st['tick_s']} s of ticks "
+                 f"in a {st['calls_s']} s drive")
+            snap = silo.stats.snapshot()
+            st["staging_dwell"] = snap["histograms"][
+                RING_STATS["staging_dwell"]]
+            st["owner_frames"] = snap["counters"].get("ingest.frames", 0)
+            url = (f"http://127.0.0.1:{silo.metrics_server.port}"
+                   f"/metrics")
+            loop = asyncio.get_running_loop()
+
+            def scrape():
+                with urllib.request.urlopen(url, timeout=10) as r:
+                    return r.status, r.read().decode()
+            status, text = await loop.run_in_executor(None, scrape)
+            assert status == 200, f"Phase M1: /metrics answered {status}"
+            assert "workers_alive" in text and "_ledger_" in text, \
+                "Phase M1: /metrics names no workers.alive or ledger. series"
+            st["scrape_bytes"] = len(text)
+        finally:
+            for c in clients:
+                await c.close_async()
+            t0 = clock()
+            await silo.stop()
+            st["stop_s"] = clock() - t0
+        exits = [lk.cuda_initialized for lk in sup.links]
+        assert exits == [False, False], \
+            f"Phase M1: the workers' exit records say CUDA {exits}"
+        return np.concatenate(got)
+
+    try:
+        out = asyncio.run(run())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out, st
+
+
+def drive_multiloop(dev, n, recv, profile=None) -> tuple:
+    """Phase M2: Phase L1's drive (``presence_torch.drive_presence``,
+    Phase H's schedule from seed 5) at ``n`` players through a silo with
+    two ingress loops and two egress shards and Phase M's observability
+    stack, without write-behind or checkpoints (Phases H and L cover the
+    flush path): bulk waves, 16 ``client.call_batch`` of 4,096, single
+    calls and ``whereis``, a broadcast (K2 each chunk), ``reduce_actors``,
+    ``join_when`` and the 64 ``GameGrain.summary`` fan-ins (K1). The
+    acceptor hands the drive's ``GatewayClient`` to one ingress loop, so
+    after the drive, before the silo stops, a second ``GatewayClient``
+    (handed to the other loop, its responses encoded on the other egress
+    shard) reads ``whereis`` of 4,096 players, which must equal the
+    engine's own read of them. Returns (results, stats, per-shard
+    counters)."""
+    pt = presence_sample()
+    from orleans_tpu_torch.membership import FileMembershipTable
+    from orleans_tpu_torch.parallel import make_mesh
+    from orleans_tpu_torch.runtime import GatewayClient
+    mesh = make_mesh(SHARDS_B, dev)
+    sched = pt.presence_schedule(n, seed=5)
+    root = build_tmpdir("phase_m2_")
+    table = FileMembershipTable(os.path.join(root, "membership.json"))
+    kept: dict = {}
+
+    def build(storage, checkpoint_dir):
+        silo = pt.build_silo(n, mesh, membership=table, ingress_loops=2,
+                             egress_shards=2, **m_config(recv))
+        stop = silo.stop
+
+        async def stop_keeping_counters(graceful=True):
+            keys = np.arange(0, n, max(1, n // 4096))
+            side = await GatewayClient(
+                [silo.silo_address.endpoint]).connect()
+            try:
+                got = await asyncio.gather(*side.call_batch(
+                    pt.PlayerVectorGrain, "whereis",
+                    [(int(k), {}) for k in keys]))
+            finally:
+                await side.close_async()
+            want = silo.vector.call_batch(pt.PlayerVectorGrain, "whereis",
+                                          keys, {})
+            pt._check("Phase M2 whereis over the second loop",
+                      np.stack([np.asarray(g) for g in got]),
+                      np.asarray(want))
+            ing, eg = silo.ingress_pool, silo.fabric.egress_pool
+            kept["frames"] = [s.frames for s in ing.shards]
+            kept["encoded"] = [s.encoded for s in eg.shards]
+            kept["row_s"] = silo.ledger.total_row_seconds()
+            await stop(graceful)
+        silo.stop = stop_keeping_counters
+        return silo
+
+    try:
+        res, st = asyncio.run(pt.drive_presence(
+            build, pt.gateway_client(), None, pt.PlayerVectorGrain,
+            pt.GameGrain, sched, None, profile=profile))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    assert len(kept["frames"]) == 2 and all(kept["frames"]), \
+        f"Phase M2: an ingress shard pumped no frame: {kept['frames']}"
+    assert len(kept["encoded"]) == 2 and all(kept["encoded"]), \
+        f"Phase M2: an egress shard encoded nothing: {kept['encoded']}"
+    return res, st, kept
+
+
+def phase_m(dev, card, got_i) -> dict:
+    """M1 (``drive_workers``) and M2 (``drive_multiloop``) at full width
+    on the card with an OTLP receiver in the script; then M1's heartbeats
+    and M2's drive at N_I players on the card and on the CPU, compared
+    exactly, and M2's results against Phase I's where the steps are the
+    same. Returns the launch counts of M1 and M2 on the card."""
+    from orleans_tpu_torch.ops import KERNELS
+    t_m = time.perf_counter()
+    with OtlpReceiver() as recv:
+        t0 = time.perf_counter()
+        _, st1 = drive_workers(dev, N_M, M_CALLS, recv)
+        wall1 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res2, st2, kept = drive_multiloop(dev, N_M, recv)
+        wall2 = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+        posts = {p: list(c) for p, c in recv.posts.items()}
+    assert posts.get("/v1/traces", [0])[0] >= 1 and \
+        posts.get("/v1/metrics", [0])[0] >= 1, \
+        f"Phase M: the OTLP receiver got {posts}"
+    d = st1["describe"]
+    dw = st1["staging_dwell"]
+    print(f"Phase M1: a worker_procs=2 silo, {N_M} players x {SHARDS_B} "
+          f"shards on the owner's card, metrics (/metrics on an ephemeral "
+          f"port, OTLP push), ledger, SLO, tracing with OTLP; {wall1:.3f} "
+          f"s in all (build, fork and start {st1['start_s']:.3f} s, stop "
+          f"{st1['stop_s']:.3f} s) on {card}")
+    print(f"  client.call_batch through the workers' rings: {M_CALLS} "
+          f"heartbeats, two clients (one a worker) at once, "
+          f"{M_CALLS / st1['calls_s']:.0f} calls/sec ({st1['calls_s']:.3f} "
+          f"s), longest loop stall {st1['stall_s'] * 1e3:.1f} ms; every "
+          f"answer exact on {card}")
+    for w in d["workers"]:
+        print(f"  worker {w['index']} (pid {w['pid']}, silo {w['silo']}): "
+              f"alive {w['alive']}, client routes {w['client_routes']}, "
+              f"request ring {w['req_pushed']} pushed / {w['req_drained']} "
+              f"drained, response ring {w['resp_pushed']} / "
+              f"{w['resp_drained']}, torch.cuda.is_initialized() "
+              f"{w['cuda_initialized']} (and False in its exit record)")
+    print(f"  the workers' share of client ingress: "
+          f"{sum(w['client_routes'] for w in d['workers'])} of "
+          f"{len(d['workers'])} client routes on the workers, 0 on the "
+          f"owner; the owner's socket pump decoded {st1['owner_frames']} "
+          f"frames while its engine served {M_CALLS} calls")
+    print(f"  staging-ring dwell (worker push -> owner pop): "
+          f"{dw['count']} records, p50 {dw['p50'] * 1e6:.1f} us, p99 "
+          f"{dw['p99'] * 1e6:.1f} us, mean {dw['mean'] * 1e6:.1f} us")
+    print(f"  ledger: per-worker device rows {st1['procs']} "
+          f"(rows, row-seconds); {st1['ticks']} ticks charged "
+          f"{st1['tick_s']:.4f} s of tick wall in the {st1['calls_s']:.3f} s "
+          f"drive, {st1['row_s']:.3f} row-seconds in all; /metrics "
+          f"{st1['scrape_bytes']} bytes, status 200")
+    print(f"Phase M2: Phase L1's drive without write-behind through a silo "
+          f"of 2 ingress loops and 2 egress shards, the same observability, "
+          f"{N_M} players; {wall2:.3f} s in all on {card}")
+    for step in ("waves", "batch", "single", "broadcast", "summary",
+                 "stop"):
+        print(f"  {step}: {st2[step + '_s']:.3f} s, longest loop stall "
+              f"{st2[step + '_stall_s'] * 1e3:.1f} ms")
+    print(f"  client.call_batch {res2['call_batch'].size} calls at "
+          f"{res2['call_batch'].size / st2['batch_s']:.0f} calls/sec; "
+          f"ingress shards pumped {kept['frames']} frames, "
+          f"egress shards encoded {kept['encoded']} batches; delivered "
+          f"{res2['delivered']}, reduce {res2['score_sum']}, join_when "
+          f"{res2['joined']}; every answer exact on {card}")
+    print(f"  OTLP receiver: {posts} ([batches, bytes] by path)")
+    print(f"Phase M at full width: {time.perf_counter() - t_m:.3f} s")
+    # M at N_I players, card against the CPU
+    t0 = time.perf_counter()
+    with OtlpReceiver() as recv:
+        hb_cuda, _ = drive_workers(dev, N_I, M_CALLS_CPU, recv)
+        hb_cpu, _ = drive_workers(torch.device("cpu"), N_I, M_CALLS_CPU,
+                                  recv)
+        ml_cuda, _, _ = drive_multiloop(dev, N_I, recv)
+        ml_cpu, _, _ = drive_multiloop(torch.device("cpu"), N_I, recv)
+    same_results(hb_cuda, hb_cpu, "Phase M1, card vs CPU")
+    same_results(ml_cuda, ml_cpu, "Phase M2, card vs CPU")
+    same_results(ml_cuda, {k: got_i[k] for k in ml_cuda},
+                 "Phase M2 vs Phase I")
+    print(f"Phase M: M1's {M_CALLS_CPU} heartbeats and M2's drive at "
+          f"{N_I} players, card == CPU exactly, and M2 == Phase I on "
+          f"its steps ({', '.join(sorted(ml_cuda))}); "
+          f"{time.perf_counter() - t0:.3f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -2660,12 +3078,24 @@ def main() -> int:
     phase_l_cpu(dev, card, got_i, st_i)
     print(f"Phase L: {t_lc - t_l:.3f} s, its CPU comparison "
           f"{time.perf_counter() - t_lc:.3f} s")
+    # Phase M: the multi-process silo (its workers forked after the
+    # owner's tables were built on the card) and the multi-loop silo, both
+    # with the observability stack; M2's 64 summaries fan in through K1
+    # and its broadcast ranks each chunk through K2
+    for k in KERNELS:
+        k.launches = 0
+    t_m = time.perf_counter()
+    launches_m = phase_m(dev, card, got_i)
+    for name, count in launches_m.items():
+        assert count > 0, f"kernel {name} was not launched in Phase M"
+    print(f"Phase M with its CPU comparison: "
+          f"{time.perf_counter() - t_m:.3f} s")
     print(f"launches on the main path: A-C {launches}, E {launches_e}, "
           f"G {launches_g}, H {launches_h}, J {launches_j}, K {launches_k}, "
-          f"L {launches_l}")
+          f"L {launches_l}, M {launches_m}")
     launches = {name: launches[name] + launches_e[name] + launches_g[name]
                 + launches_h[name] + launches_j[name] + launches_k[name]
-                + launches_l[name] for name in launches}
+                + launches_l[name] + launches_m[name] for name in launches}
 
     sources = {SEGMENT_SUM.name: ("orleans_tpu/ops/segment_reduce.py:87",
                                   "orleans_tpu_torch/ops/csrc/segment_sum.cu"),

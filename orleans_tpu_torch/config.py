@@ -13,10 +13,7 @@ SiloHostBuilder.cs:13).
 The port's copy of ``orleans_tpu.config``. It differs in two places:
 ``DispatchOptions`` has no ``exchange_capacity`` (nothing reads it); and
 ``apply_options`` raises for a group field whose flat ``SiloConfig`` field
-is missing instead of adding it. Groups whose modules the port does not
-hold yet (metrics, SLO, ledger, OTLP export, worker processes, ingress
-loops, egress shards) are copied all the same: their flat fields meet
-``runtime.silo.UNPORTED_OPTIONS`` at ``SiloBuilder.build()``.
+is missing instead of adding it.
 """
 
 from __future__ import annotations

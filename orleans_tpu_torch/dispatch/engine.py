@@ -66,7 +66,7 @@ from ..observability.stats import INGEST_STATS as _INGEST
 from ..ops.hash_probe import device_lookup64
 from ..ops.route import rank_dense_keys
 from ..ops.segment_reduce import REDUCE_OPS, host_fold, masked_reduce
-from ..parallel.mesh import Mesh, make_mesh
+from ..parallel.mesh import Mesh, make_mesh, refuse_in_worker
 from ..parallel.transport import build_exchange
 from .table import _LOC_STRIDE, ShardedActorTable
 from .vector_grain import ActorMethod, VectorGrain
@@ -441,10 +441,13 @@ class VectorActorRef:
 class VectorRuntime:
     """Per-silo device-tier runtime: tables, the tick loop, kernel cache.
 
-    ``mesh=None`` means ``make_mesh()``: CUDA, or raise."""
+    ``mesh=None`` means ``make_mesh()``: CUDA, or raise. Raises
+    ``WorkerProcessError`` in a forked worker process of a multi-process
+    silo (``parallel.mesh``)."""
 
     def __init__(self, mesh: Mesh | None = None,
                  capacity_per_shard: int = 1024, options=None):
+        refuse_in_worker("VectorRuntime")
         if options is not None:  # config.DispatchOptions
             options.validate()
             capacity_per_shard = options.capacity_per_shard

@@ -17,7 +17,8 @@ cluster's key partition without a directory entry per actor.
 The port's copy of ``orleans_tpu.dispatch.hosting``, over the port's
 engine and the port's host tier (``orleans_tpu_torch.runtime``): snapshots
 are ``torch.save`` directories (storage.checkpoint), and ``mesh=None``
-means CUDA or raise, as everywhere in the port.
+means CUDA or raise, as everywhere in the port. Its ownership sweep keeps
+the rows of keys the ring gives the silo's own worker processes.
 """
 
 from __future__ import annotations
@@ -114,7 +115,10 @@ def add_vector_grains(builder, *grain_classes: type[VectorGrain],
         takes. Host-tier analog: duplicate-activation deactivation on
         directory re-registration. Rows with acked-but-unflushed writes
         are flushed FIRST (leave-side handoff: make the tail durable
-        before handing the key over) when a write-behind bridge exists."""
+        before handing the key over) when a write-behind bridge exists.
+        A key the ring gives one of this silo's own worker processes
+        (``runtime.multiproc``) stays: their vector calls run on this
+        engine, the one device engine of the silo's processes."""
         import asyncio
         import logging
 
@@ -127,10 +131,12 @@ def add_vector_grains(builder, *grain_classes: type[VectorGrain],
                 await asyncio.sleep(0)  # after the locator applies the view
                 me = silo.silo_address
                 ring = silo.locator.ring
+                workers = silo.workers.silo_addresses() \
+                    if silo.workers is not None else ()
 
                 def owned(uh: int) -> bool:
                     o = ring.owner(uh)
-                    return o is None or o == me
+                    return o is None or o == me or o in workers
 
                 n = 0
                 for cls in grain_classes:

@@ -289,12 +289,12 @@ class ManagementGrain(Grain):
         and tenant from the merged ranking. Per-silo snapshots ride in
         ``per_silo`` for drill-down. One call answers "who is spending
         this cluster" — the drill-down an SLO breach (and the rebalance
-        planner's host-tier candidates) starts from. The merge needs
-        ``observability/ledger.py``, which the port does not hold yet:
-        refused (ROADMAP Queue 1 item 17)."""
-        raise NotImplementedError(
-            "get_cluster_ledger needs observability/ledger.py, which "
-            "orleans_tpu_torch does not port yet (ROADMAP Queue 1 item 17)")
+        planner's host-tier candidates) starts from."""
+        from ..observability.ledger import CostLedger
+        per_silo = await self._fan_out("ctl_ledger", k)
+        out = CostLedger.merge(s for s in per_silo.values() if s)
+        out["per_silo"] = per_silo
+        return out
 
     async def get_cluster_histogram(self, name: str) -> dict | None:
         """One named latency histogram aggregated across every silo

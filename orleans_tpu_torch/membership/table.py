@@ -18,6 +18,8 @@ test/TesterInternal/MembershipTests/MembershipTableTestsBase.cs):
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import fcntl
 import json
 import os
 import sqlite3
@@ -187,11 +189,27 @@ class InMemoryMembershipTable(MembershipTable):
 class FileMembershipTable(MembershipTable):
     """JSON-file backend: whole-file read-modify-write under an OS file lock.
     Stands in for the reference's external-store tables (Azure/ZooKeeper/
-    Consul clustering packs) for single-host multi-process deployments."""
+    Consul clustering packs) for single-host multi-process deployments.
+
+    The port's copy holds an ``flock`` on ``<path>.lock`` around every
+    read-modify-write, so the CAS holds across processes (the workers of a
+    multi-process silo write the owner's table): the JAX package's copy
+    locks only within one process and writes one ``<path>.tmp`` from every
+    process, so writes from two processes interleaved in it and a CAS
+    insert could be lost."""
 
     def __init__(self, path: str) -> None:
         self.path = path
         self._lock = asyncio.Lock()
+
+    @contextlib.contextmanager
+    def _os_lock(self):
+        fd = os.open(self.path + ".lock", os.O_RDWR | os.O_CREAT, 0o644)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX)
+            yield
+        finally:
+            os.close(fd)  # releases the lock
 
     def _load(self) -> tuple[dict, TableVersion]:
         if not os.path.exists(self.path):
@@ -219,45 +237,50 @@ class FileMembershipTable(MembershipTable):
 
     async def read_all(self) -> TableSnapshot:
         async with self._lock:
-            rows, version = self._load()
+            with self._os_lock():
+                rows, version = self._load()
             return TableSnapshot(
                 entries=[(e, str(tag)) for e, tag in rows.values()],
                 version=version)
 
     async def insert_row(self, entry, version) -> bool:
         async with self._lock:
-            rows, cur = self._load()
-            key = self._key(entry.address)
-            if version.version != cur.version + 1 or key in rows:
-                return False
-            rows[key] = (entry, int(time.time_ns()))
-            self._store(rows, version)
-            return True
+            with self._os_lock():
+                rows, cur = self._load()
+                key = self._key(entry.address)
+                if version.version != cur.version + 1 or key in rows:
+                    return False
+                rows[key] = (entry, int(time.time_ns()))
+                self._store(rows, version)
+                return True
 
     async def update_row(self, entry, etag, version) -> bool:
         async with self._lock:
-            rows, cur = self._load()
-            key = self._key(entry.address)
-            existing = rows.get(key)
-            if (version.version != cur.version + 1 or existing is None
-                    or str(existing[1]) != etag):
-                return False
-            rows[key] = (entry, int(time.time_ns()))
-            self._store(rows, version)
-            return True
+            with self._os_lock():
+                rows, cur = self._load()
+                key = self._key(entry.address)
+                existing = rows.get(key)
+                if (version.version != cur.version + 1 or existing is None
+                        or str(existing[1]) != etag):
+                    return False
+                rows[key] = (entry, int(time.time_ns()))
+                self._store(rows, version)
+                return True
 
     async def update_iam_alive(self, address, ts) -> None:
         async with self._lock:
-            rows, version = self._load()
-            cur = rows.get(self._key(address))
-            if cur is not None:
-                cur[0].iam_alive_time = ts
-                self._store(rows, version)
+            with self._os_lock():
+                rows, version = self._load()
+                cur = rows.get(self._key(address))
+                if cur is not None:
+                    cur[0].iam_alive_time = ts
+                    self._store(rows, version)
 
     async def delete_table(self) -> None:
         async with self._lock:
-            if os.path.exists(self.path):
-                os.remove(self.path)
+            with self._os_lock():
+                if os.path.exists(self.path):
+                    os.remove(self.path)
 
 
 class SqliteMembershipTable(MembershipTable):

@@ -1,9 +1,23 @@
-"""Observability of the port: statistics, distributed tracing, and the
-host-loop occupancy profiler with ``torch.profiler`` device traces (the
-port of ``orleans_tpu.observability``: ``stats``, ``tracing`` and
-``profiling``, and the telemetry consumers with the watchdog; export,
-metrics, slo and ledger are not ported)."""
+"""Observability of the port: statistics, distributed tracing, the
+host-loop occupancy profiler with ``torch.profiler`` device traces, the
+telemetry consumers with the watchdog, the live metrics pipeline, SLO
+burn-rate monitoring, the cost-attribution ledger, and Perfetto/OTLP
+export (the port of ``orleans_tpu.observability``)."""
 
+from .export import (  # noqa: F401
+    OtlpMetricsSink,
+    OtlpSink,
+    chrome_trace_events,
+    snapshots_to_otlp_metrics,
+    spans_to_otlp,
+    write_chrome_trace,
+)
+from .metrics import (  # noqa: F401
+    MetricsHttpServer,
+    MetricsSampler,
+    WindowedGauge,
+    prometheus_exposition,
+)
 from .profiling import (  # noqa: F401
     LOOP_CATEGORIES,
     LOOP_CATEGORY,
@@ -25,6 +39,11 @@ from .stats import (  # noqa: F401
     CallSiteStats,
     Histogram,
     StatsRegistry,
+)
+from .slo import (  # noqa: F401
+    SloMonitor,
+    SloSpec,
+    default_specs,
 )
 from .telemetry import (  # noqa: F401
     FileTelemetryConsumer,

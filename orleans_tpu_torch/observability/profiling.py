@@ -670,18 +670,26 @@ class Profiler:
     work, so every kernel launched in the window is in the capture, then
     writes it to ``<log_dir>/trace.json`` and keeps the finished profile
     as ``last`` (``last.key_averages()`` sums it by op and kernel). One
-    active capture per process; ``stop()`` is idempotent."""
+    active capture per process; ``stop()`` is idempotent. In a forked
+    worker process of a multi-process silo it captures the CPU only and
+    makes no ``torch.cuda`` call (``parallel.mesh.in_worker_process``):
+    CUDA must not start there."""
 
     def __init__(self) -> None:
         self.active_dir: str | None = None
         self._prof = None
         self.last = None
 
+    @staticmethod
+    def _device() -> bool:
+        from ..parallel.mesh import in_worker_process
+        return not in_worker_process() and torch.cuda.is_available()
+
     def start(self, log_dir: str) -> None:
         if self.active_dir is not None:
             raise RuntimeError(f"trace already active → {self.active_dir}")
         activities = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
+        if self._device():
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         self._prof = torch.profiler.profile(activities=activities)
         self._prof.__enter__()
@@ -692,7 +700,7 @@ class Profiler:
         if self.active_dir is None:
             return None
         prof, self._prof = self._prof, None
-        if torch.cuda.is_available():
+        if self._device():
             torch.cuda.synchronize()
         prof.__exit__(None, None, None)
         self.last = prof

@@ -14,7 +14,7 @@ This module grows that into a W3C-style trace/span model:
   execution split (``runtime/dispatcher``), the network leg (stamped
   send-side, measured receive-side), directory lookups
   (``directory/locator``), device ticks (``dispatch/engine``), and
-  rebalance migration legs (``rebalance/executor``, not ported);
+  rebalance migration legs (``rebalance/executor``);
 * a per-silo :class:`SpanCollector` ring buffer holds finished spans with
   a head-based sampling knob (``config.TracingOptions`` /
   ``trace_sample_rate``): the ROOT of a trace rolls the sampling die once
@@ -24,9 +24,8 @@ This module grows that into a W3C-style trace/span model:
 
 Consumers: the management surface (``SiloControl.ctl_trace_spans`` +
 ``ManagementGrain.get_trace_breakdown``) for cluster-wide critical-path
-queries, and the JAX package's ``observability.export`` for
-Chrome-trace/Perfetto timeline files merging every silo of a cluster
-(not ported).
+queries, and :mod:`.export` for Chrome-trace/Perfetto timeline files
+merging every silo of a cluster.
 
 **Tail-based retention** (the Dapper/OTel-collector tail-sampling stage):
 head sampling decides what gets *recorded*; in tail mode

@@ -1,6 +1,6 @@
 """Host-tier runtime: silo, catalog, dispatcher, grain API (the port of
 ``orleans_tpu.runtime``: in-proc and TCP socket fabrics with the gateway
-client; multi-process and multi-loop silos are not ported)."""
+client, multi-loop and multi-process silos)."""
 
 from .activation import ActivationData, ActivationState  # noqa: F401
 from .cancellation import (  # noqa: F401

@@ -38,9 +38,7 @@ category-partitioned inbound queues exist for.
 ``Dispatcher.send_response`` then takes the per-message path bit for
 bit, the A/B lever symmetric with ``batched_ingress``.
 
-The port's copy of ``orleans_tpu.runtime.egress``. The port has no egress
-shards yet (``runtime.multiloop``), so every destination's dwell is
-observed here at flush.
+The port's copy of ``orleans_tpu.runtime.egress``.
 """
 
 from __future__ import annotations

@@ -205,10 +205,9 @@ class RuntimeClient:
                                     policy=policy, max_pending=max_pending,
                                     **kw)
         if otlp_endpoint:
-            raise NotImplementedError(
-                "an OTLP sink needs observability/export.py, which "
-                "orleans_tpu_torch does not port yet (ROADMAP Queue 1 "
-                "item 17)")
+            from ..observability.export import OtlpSink
+            self.tracer.sinks.append(OtlpSink(otlp_endpoint,
+                                              service_name=name))
         return self.tracer
 
     def _mark_remote_trace(self, msg: Message) -> None:

@@ -11,10 +11,10 @@ The in-proc fabric (runtime.cluster.InProcFabric) replaces sockets for
 single-host clusters and tests; the data plane for vectorized grains rides
 device collectives (parallel.transport) instead of either.
 
-The port's copy of ``orleans_tpu.runtime.silo``. The options whose modules
-the port does not hold yet are refused when the silo is built
-(:data:`UNPORTED_OPTIONS`, ``NotImplementedError`` naming the module and
-its ROADMAP item).
+The port's copy of ``orleans_tpu.runtime.silo``. A replicated journaled
+grain class, whose module the port does not hold yet, is refused when the
+silo is built (:func:`refuse_unported`, ``NotImplementedError`` naming the
+module and its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -50,44 +50,19 @@ if TYPE_CHECKING:
 
 log = logging.getLogger("orleans.silo")
 
-__all__ = ["SiloConfig", "Silo", "SiloBuilder", "ServiceLifecycleStage",
-           "UNPORTED_OPTIONS"]
-
-# (SiloConfig field, test that it is set, module it needs, ROADMAP item):
-# a silo configured so refuses to build instead of failing on a missing
-# module inside start()
-UNPORTED_OPTIONS = (
-    ("worker_procs", lambda v: v > 1, "runtime/multiproc.py", 16),
-    ("ingress_loops", lambda v: v > 1, "runtime/multiloop.py", 16),
-    ("egress_shards", lambda v: v > 0, "runtime/multiloop.py", 16),
-    ("metrics_enabled", bool, "observability/metrics.py", 17),
-    ("metrics_port", lambda v: v is not None, "observability/metrics.py", 17),
-    ("slo_enabled", bool, "observability/slo.py", 17),
-    ("ledger_enabled", bool, "observability/ledger.py", 17),
-    ("trace_otlp_endpoint", bool, "observability/export.py", 17),
-)
+__all__ = ["SiloConfig", "Silo", "SiloBuilder", "ServiceLifecycleStage"]
 
 
-def refuse_unported(config: "SiloConfig", registry: "GrainRegistry") -> None:
-    """Raise NotImplementedError for an option or grain class that needs a
-    module the port does not hold yet."""
-    from ..config import _FLAT_MAP
-
-    for name, is_set, module, item in UNPORTED_OPTIONS:
-        value = getattr(config, name)
-        if is_set(value):
-            group, field = _FLAT_MAP[name]
-            raise NotImplementedError(
-                f"SiloConfig.{name}={value!r} (config.py's "
-                f"{group.__name__}.{field}) needs {module}, which "
-                f"orleans_tpu_torch does not port yet (ROADMAP Queue 1 "
-                f"item {item})")
+def refuse_unported(registry: "GrainRegistry") -> None:
+    """Raise NotImplementedError for a grain class that needs a module the
+    port does not hold yet."""
     for cls in registry.all_classes():
         if getattr(cls, "__journal_replicated__", False):
             raise NotImplementedError(
                 f"{cls.__name__} is a replicated journaled grain, which "
                 f"needs eventsourcing/journaled.py; orleans_tpu_torch does "
                 f"not port it yet (ROADMAP Queue 1 item 18)")
+
 
 # eager_task_factory is a per-loop setting shared by every silo on the
 # loop (and the embedding app). Refcount installs so the last silo to
@@ -868,7 +843,7 @@ class Silo:
 
     def __init__(self, config: SiloConfig, fabric: "InProcFabric",
                  registry: GrainRegistry, storage: StorageManager):
-        refuse_unported(config, registry)
+        refuse_unported(registry)
         self.config = config
         self.fabric = fabric
         self.registry = registry
@@ -1182,11 +1157,6 @@ class Silo:
         if graceful:
             if self.membership is not None:
                 await self.membership.shutdown()
-            if workers_sup is not None:
-                # AFTER the owner's goodbye write: the owner's own
-                # iam-alive/refresh timers keep writing the shared table
-                # file until the shutdown above
-                workers_sup.cleanup_membership_dir()
             # let in-flight turns finish before tearing down the catalog;
             # stragglers past the deactivation budget are cancelled
             await self.dispatcher.drain_turns(self.config.deactivation_timeout)
@@ -1206,6 +1176,11 @@ class Silo:
                 # the goodbye's second half: peers answered our
                 # unregisters and handoff while we were ShuttingDown
                 await self.membership.goodbye()
+            if workers_sup is not None:
+                # AFTER the owner's goodbye writes: the owner's own
+                # iam-alive/refresh timers and the goodbye's Dead row
+                # write the shared table file until here
+                workers_sup.cleanup_membership_dir()
         # background notification/retry tasks must not outlive the runtime
         for t in list(getattr(self, "_journal_notify_tasks", ())):
             t.cancel()

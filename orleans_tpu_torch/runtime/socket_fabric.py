@@ -28,13 +28,10 @@ In-process clusters and liveness tests keep using
 runtime.cluster.InProcFabric; this module exists for real multi-process
 deployments and is exercised by tests over localhost sockets.
 
-The port's copy of ``orleans_tpu.runtime.socket_fabric``, without the
-paths of the modules it does not hold yet (``runtime.multiloop``,
-``runtime.multiproc``, ``observability.ledger``): the multi-loop
-acceptor, the egress shards (``_ShardSenderHandle``, the shard-side send
-and the shard-bound client routes) and the SO_REUSEPORT listener.
-``SiloBuilder.build()`` refuses the options that reach them
-(``ingress_loops > 1``, ``egress_shards > 0``, ``worker_procs > 1``).
+The port's copy of ``orleans_tpu.runtime.socket_fabric``, with two
+repairs: the multi-loop acceptor's listener closes only after its accept
+task has ended (see ``_serve``), and addresses made in one millisecond get
+distinct generations (see ``_fresh_generation``).
 """
 
 from __future__ import annotations
@@ -42,6 +39,7 @@ from __future__ import annotations
 import asyncio
 import itertools
 import logging
+import os
 import random
 import socket
 import time
@@ -51,7 +49,8 @@ from ..core import serialization as _ser
 from ..core.asyncs import ExponentialBackoff, retry
 from ..core.errors import SiloUnavailableError
 from ..core.ids import SiloAddress
-from ..core.message import Direction, Message
+from ..core.message import Category, Direction, Message, recycle_messages
+from ..observability.stats import EGRESS_STATS
 from .references import GrainFactory
 from .runtime_client import RuntimeClient
 from .wire import (
@@ -91,6 +90,13 @@ _SEND_BATCH_MAX = 256
 _HW = _ser._hotwire
 _HW_WRITEV = _HW is not None and hasattr(_HW, "sock_writev")
 
+_EG_ENCODE = EGRESS_STATS["encode"]
+_EG_RING_DROPS = EGRESS_STATS["ring_drops"]
+
+# wire-charge stamp for the sharded egress stat rings (cost
+# attribution): the shard may not touch the loop-confined CostLedger,
+# so byte counts ride the ring and replay in EgressShardPool._apply_stats
+from ..observability.ledger import WIRE_STAMP as _LEDGER_WIRE  # noqa: E402
 
 
 def _writev_stream(writer: asyncio.StreamWriter, chunks: list) -> None:
@@ -198,23 +204,44 @@ async def _read_peer_codec(reader: asyncio.StreamReader) -> bool:
         return False
 
 
+# the low 12 bits of this process's generations: a sequence from a random
+# start, restarted in a forked child (as ``random`` reseeds there)
+_gen_seq = itertools.count(random.getrandbits(12))
+
+
+def _restart_gen_seq() -> None:
+    global _gen_seq
+    _gen_seq = itertools.count(random.getrandbits(12))
+
+
+os.register_at_fork(after_in_child=_restart_gen_seq)
+
+
 def _fresh_generation() -> int:
     """Epoch stamp distinguishing restarts at the same endpoint
     (SiloAddress.cs generation): full millisecond timestamp in the high bits
     so a later restart ALWAYS gets a higher generation (the membership join
     protocol requires strict monotonicity to declare prior incarnations
-    dead); randomized low bits avoid same-millisecond collisions."""
-    return (int(time.time() * 1000) << 12) | random.getrandbits(12)
+    dead). The low bits count on from a random start, so 4,096 addresses
+    made in one millisecond by one process are distinct: a gateway client's
+    address differs from another's only by its generation, and random low
+    bits let two clients made in one millisecond collide."""
+    return (int(time.time() * 1000) << 12) | (next(_gen_seq) & 0xFFF)
 
 
 class _Sender:
     """Per-endpoint outbound queue + writer task (the SiloMessageSender
-    analog — per-target FIFO, lazy dial, bounded reconnect), on the main
-    loop."""
+    analog — per-target FIFO, lazy dial, bounded reconnect). Runs on
+    whichever loop constructed it: the main loop (classic path), or an
+    egress shard's loop (``shard`` set — ``EgressShard._sender``
+    constructs it there; encode then uses the per-shard template cache,
+    stage timings are STAMPED and replayed loop-side, and outbound
+    response envelopes recycle shard-side after their bytes exist)."""
 
-    def __init__(self, fabric: "SocketFabric", endpoint: str):
+    def __init__(self, fabric: "SocketFabric", endpoint: str, shard=None):
         self.fabric = fabric
         self.endpoint = endpoint
+        self.shard = shard      # multiloop.EgressShard | None
         self.queue: asyncio.Queue[Message] = asyncio.Queue()
         self.task = asyncio.get_running_loop().create_task(self._run())
         self.writer: asyncio.StreamWriter | None = None
@@ -223,7 +250,8 @@ class _Sender:
         self.peer_native = False
         self._busy = False      # mid-batch flag (drain_idle)
 
-    # -- feed surface --------------------------------------------------
+    # -- main-loop feed surface (classic senders; a shard-owned sender
+    # -- is fed by its shard instead) ------------------------------------
     def feed(self, msg: Message) -> None:
         self.queue.put_nowait(msg)
 
@@ -262,33 +290,77 @@ class _Sender:
 
     async def _run(self) -> None:
         # loop attribution: everything this task does — wire encode and
-        # the transport write — is outbound work ("egress")
+        # the transport write — is outbound work; "egress" is the slice
+        # the sharded-egress A/B moves off the main loop (a shard-owned
+        # sender books it on the shard loop's own profiler instead)
         from ..observability.profiling import mark_loop_category
         mark_loop_category("egress")
+        shard = self.shard
         while True:
             msg = await self.queue.get()
             batch = _drain_batch(self.queue, msg)
+            if shard is not None:
+                # backpressure accounting (EgressShard.pending, keyed
+                # by endpoint): these leave the sender queue NOW — at
+                # most one in-flight batch (<= _SEND_BATCH_MAX) goes
+                # uncounted while a wedged peer blocks the write below;
+                # the queue refilling behind it is what the feed bound
+                # reads. Missing key = _close_endpoint already
+                # reconciled this sender: no-op, a re-dialed sender's
+                # fresh entry must not go negative.
+                if self.endpoint in shard.pending:
+                    shard.pending[self.endpoint] -= sum(
+                        1 for m in batch
+                        if m.category is Category.APPLICATION)
             if self.fabric.is_endpoint_dead(self.endpoint):
-                continue  # dead-silo drop (MessageCenter SiloDeadOracle)
+                # dead-silo drop (MessageCenter SiloDeadOracle): the
+                # shard-owned batch's dead RESPONSE shells still go
+                # back to the pool — every drop path recycles (the
+                # ring-full path does via _egress_dropped)
+                if shard is not None:
+                    shard._recycle_responses(batch)
+                continue
             self._busy = True
+            bounced: list = []
             try:
                 if self.writer is None or self.writer.is_closing():
                     self.writer = await self._connect()
                 # encode AFTER the (re)connect: peer_native is per-link.
-                await self._send_batch_loopside(batch)
+                if shard is None:
+                    await self._send_batch_loopside(batch)
+                else:
+                    await self._send_batch_sharded(shard, batch, bounced)
             except (SiloUnavailableError, OSError, FrameError) as e:
                 log.warning("send to %s failed: %s", self.endpoint, e)
                 if self.writer is not None:
                     self.writer.close()
                     self.writer = None
-                # dropped: senders learn via response timeout / membership
+                # dropped: senders learn via response timeout /
+                # membership — the now-dead outbound responses of a
+                # shard-owned batch still recycle (finally below)
             finally:
+                if shard is not None:
+                    # encode-then-recycle, every path: success, encode
+                    # bounce, and send failure all end these envelopes'
+                    # lifecycles (requests stay out — correlation owns
+                    # them sender-side). BOUNCED envelopes stay out
+                    # too: their bounce is marshalled to the main loop
+                    # and still in flight — recycling here would let
+                    # the pool re-issue the shell before the callback
+                    # reads it (identity filter: Message.__eq__ is
+                    # field-comparing).
+                    if bounced:
+                        skip = set(map(id, bounced))
+                        shard._recycle_responses(
+                            [m for m in batch if id(m) not in skip])
+                    else:
+                        shard._recycle_responses(batch)
                 self._busy = False
 
     async def _send_batch_loopside(self, batch: list) -> None:
-        """The main-loop drain: encode against the shared template cache,
-        stats straight into the registry (we ARE the loop), one vectored
-        write."""
+        """The classic main-loop drain: encode against the shared
+        template cache, stats straight into the registry (we ARE the
+        loop), one vectored write."""
         # egress.encode is the RESPONSE-path stage: only batches
         # carrying responses observe it (a pure request drain booking
         # into it would inflate the response-path share the attribution
@@ -307,9 +379,56 @@ class _Sender:
         led = self.fabric.ledger
         if led is not None:
             # main-loop sender: the ledger is loop-confined here, charge
-            # directly
+            # directly (the sharded path stamps instead)
             led.charge_wire(f"peer:{self.endpoint}",
                             tx=sum(len(c) for c in chunks))
+        _writev_stream(self.writer, chunks)
+        await self.writer.drain()
+
+    async def _send_batch_sharded(self, shard, batch: list,
+                                  bounced: list) -> None:
+        """The shard-loop drain: per-shard template cache, encode bounce
+        MARSHALLED to the main loop (``bounce_unencodable`` routes
+        through main-loop state; the bounced envelope joins ``bounced``
+        so the caller's recycle sweep leaves it for the in-flight
+        callback to own), dwell/encode STAMPED here and replayed
+        loop-side over the shard's stat ring — the registries are
+        loop-confined, so no live registry ever crosses into this
+        context (the OTPU007 contract)."""
+        fab = self.fabric
+        main = shard.main_loop
+
+        def _bounce(m, e):
+            bounced.append(m)
+            try:
+                main.call_soon_threadsafe(fab.bounce_unencodable, m, e)
+            except RuntimeError:
+                # main loop gone (process teardown): the bounce is
+                # moot, but raising here would escape _run's except
+                # tuple and kill the sender task
+                pass
+
+        stamps = shard._dwell_stamps(batch)
+        t0 = time.monotonic()
+        chunks = encode_message_batch(
+            batch, _bounce,
+            native=self.peer_native, stats=None,
+            templates=fab.response_templates,
+            tmpl_cache=shard.tmpl_cache)
+        if chunks and stamps is not None and any(
+                m.direction == Direction.RESPONSE for m in batch):
+            stamps.append((_EG_ENCODE, time.monotonic() - t0))
+        if chunks and stamps is not None and fab.ledger is not None:
+            # wire-byte charge stamped for loop-side replay (the shard
+            # may not touch the loop-confined ledger)
+            stamps.append((_LEDGER_WIRE,
+                           (f"peer:{self.endpoint}",
+                            sum(len(c) for c in chunks))))
+        if stamps:
+            shard.stat_ring.push((0, stamps), 0)
+        if not chunks:
+            return
+        shard.encoded += 1
         _writev_stream(self.writer, chunks)
         await self.writer.drain()
 
@@ -329,6 +448,67 @@ class _Sender:
         if self.writer is not None:
             self.writer.close()
             self.writer = None
+
+
+class _ShardSenderHandle:
+    """Main-loop face of a shard-owned silo-peer sender (sharded
+    egress): application traffic — flush groups and per-message sends
+    alike — crosses the shard's SPSC egress ring (ring FIFO keeps
+    per-message sends ordered behind the groups ``flush_dest`` drained
+    first), while PING/SYSTEM bypasses the ring per-message so a probe
+    response can never sit behind ring backpressure (the QoS split).
+    The actual :class:`_Sender` (queue + dial + encode + writev) lives
+    on the shard loop — ``EgressShard._sender`` constructs it there."""
+
+    __slots__ = ("fabric", "shard", "endpoint")
+
+    def __init__(self, fabric: "SocketFabric", shard, endpoint: str):
+        self.fabric = fabric
+        self.shard = shard
+        self.endpoint = endpoint
+
+    def feed(self, msg: Message) -> None:
+        shard = self.shard
+        if shard.pool.closed:
+            self.fabric._classic_sender(self.endpoint).feed(msg)
+            return
+        # clear the local arrival stamp before the hand-off: on a
+        # relayed envelope it is INGRESS time — shard-side dwell must
+        # only ever see the egress accumulator's send-side stamps
+        # (feed_group), and the slot is wire-excluded dead weight here
+        msg.received_at = None
+        if msg.category is not Category.APPLICATION:
+            shard.peer_direct(self.endpoint, msg)
+        elif not shard.feed_peer(self.endpoint, msg, 1):
+            self.fabric._egress_dropped(shard, [msg])
+
+    def feed_group(self, msgs: list) -> None:
+        shard = self.shard
+        if shard.pool.closed:
+            self.fabric._classic_sender(self.endpoint).feed_group(msgs)
+            return
+        if not shard.feed_peer(self.endpoint, msgs, len(msgs)):
+            self.fabric._egress_dropped(shard, msgs)
+
+    def close(self) -> None:
+        try:
+            self.shard.loop.call_soon_threadsafe(
+                self.shard._close_endpoint, self.endpoint)
+        except RuntimeError:
+            pass  # shard loop gone: its senders died with it
+
+
+class _PoolAcceptor:
+    """Server-shaped handle for a multi-loop silo's acceptor (what
+    ``unregister_silo`` closes in place of the asyncio server)."""
+
+    __slots__ = ("pool",)
+
+    def __init__(self, pool):
+        self.pool = pool
+
+    def close(self) -> None:
+        self.pool.close_acceptor()
 
 
 class SocketFabric:
@@ -368,9 +548,17 @@ class SocketFabric:
         # restores the per-frame header encode (bytes are identical
         # either way — this only flips WHICH encoder produced them)
         self.response_templates = True
+        # sharded egress (runtime.multiloop.EgressShardPool): constructed
+        # by register_silo when a local silo has egress_shards >= 1;
+        # None = every sender/encode/write stays on the main loop
+        self.egress_pool = None
+        # peer endpoint -> ingress shard index owning the INBOUND half of
+        # that peering (recorded at the shard handshake, marshalled here:
+        # main-loop state) — the egress pool's link-affinity source
+        self._peer_shard: dict[str, int] = {}
         # main-loop occupancy profiler (set by the silo when profiling is
         # on): the inline client-route encode+write paths book their
-        # slice under "egress"
+        # slice under "egress" so the sharded-egress A/B is measurable
         self.loop_prof = None
         # multi-process silo (runtime.multiproc) relay state. All three
         # stay empty/None under worker_procs=1 — the delivery hot path
@@ -401,19 +589,20 @@ class SocketFabric:
                          reuseport: bool = False) -> SiloAddress:
         """Bind + listen immediately so peers can connect (backlog) even
         before the asyncio server attaches in register_silo — no startup
-        race between silos dialing each other. ``reuseport=True`` (a
-        multi-process silo's SO_REUSEPORT accept group) needs
-        ``runtime.multiproc``, which the port does not hold yet."""
+        race between silos dialing each other. ``reuseport=True``
+        reserves a multi-process ADVERTISED endpoint: the socket opens
+        an SO_REUSEPORT accept group that forked worker processes join
+        with their own listeners (the owner's copy never accepts and
+        closes once the workers are serving)."""
         if reuseport:
-            raise NotImplementedError(
-                "a reuseport listener needs runtime/multiproc.py, which "
-                "orleans_tpu_torch does not port yet (ROADMAP Queue 1 "
-                "item 16)")
-        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        sock.bind((self.host, 0))
-        sock.listen(128)
-        sock.setblocking(False)
+            from .multiproc import _reuseport_listener
+            sock = _reuseport_listener(self.host, 0)
+        else:
+            sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            sock.bind((self.host, 0))
+            sock.listen(128)
+            sock.setblocking(False)
         port = sock.getsockname()[1]
         addr = SiloAddress(self.host, port, _fresh_generation())
         self._listen_socks[addr.endpoint] = sock
@@ -439,6 +628,28 @@ class SocketFabric:
         if sock is None:
             raise SiloUnavailableError(
                 f"silo address {addr} was not allocated by this fabric")
+        if silo.config.ingress_loops > 1 and silo.ingress_pool is None:
+            # multi-loop silo (runtime.multiloop): N ingress pump
+            # threads, each with its own event loop + vectored socket
+            # pump, fed by the round-robin acceptor below over SPSC
+            # hand-off rings. ingress_loops=1 (default) constructs none
+            # of this — the start_server path below is today's bit for
+            # bit.
+            from .multiloop import IngressLoopPool
+            silo.ingress_pool = IngressLoopPool(
+                silo, silo.config.ingress_loops)
+            silo.ingress_pool.start()
+        if silo.config.egress_shards > 0 and self.egress_pool is None:
+            # sharded egress (runtime.multiloop): silo-peer senders and
+            # shard-owned client-route writes move onto shard loops, fed
+            # over SPSC egress rings from this loop. Borrows the ingress
+            # shards when the silo runs multi-loop (link-ownership
+            # affinity), else spawns dedicated egress loop threads.
+            # egress_shards=0 (default) constructs none of this.
+            from .multiloop import EgressShardPool
+            self.egress_pool = EgressShardPool(
+                self, silo, silo.config.egress_shards,
+                ingress_pool=silo.ingress_pool)
         loop = asyncio.get_running_loop()
         t = loop.create_task(self._serve(silo, sock))
         self._conn_tasks.add(t)
@@ -447,9 +658,43 @@ class SocketFabric:
             silo.membership.subscribe(self._on_membership_change)
 
     async def _serve(self, silo: "Silo", sock: socket.socket) -> None:
-        server = await asyncio.start_server(
-            lambda r, w: self._handle_conn(silo, r, w), sock=sock)
-        self._servers[silo.silo_address] = server
+        pool = silo.ingress_pool
+        if pool is None:
+            server = await asyncio.start_server(
+                lambda r, w: self._handle_conn(silo, r, w), sock=sock)
+            self._servers[silo.silo_address] = server
+            return
+        # multi-loop acceptor: the listener runs on the main loop and
+        # hands each accepted socket round-robin to an ingress shard
+        # (the listener-thread form of the reference's acceptor; one
+        # process needs no SO_REUSEPORT for this). The shard owns the
+        # connection — handshake, pump, and client-route writes all run
+        # on its loop.
+        #
+        # Closing stops the accept task and the task closes the listener
+        # on its way out. The loop removes the listener's reader in a
+        # callback it schedules when the pending accept is cancelled,
+        # and that callback runs before the task resumes. Closing the
+        # socket before it runs freed the fd number while the loop still
+        # held a registration for it: a listener opened on this loop
+        # before the callback ran (the next silo's, started right after
+        # this one stopped) took the number, met the stale entry, and
+        # never accepted.
+        accept_task = asyncio.current_task()
+        pool.accept_handle = accept_task.cancel
+        self._servers[silo.silo_address] = _PoolAcceptor(pool)
+        loop = asyncio.get_running_loop()
+        try:
+            while not pool.closed:
+                conn, _peer = await loop.sock_accept(sock)
+                conn.setblocking(False)
+                pool.assign().submit_conn(self, silo, conn)
+        except asyncio.CancelledError:
+            pass
+        except OSError:
+            pass  # listener failed under us
+        finally:
+            sock.close()
 
     def unregister_silo(self, silo: "Silo", dead: bool = False) -> None:
         addr = silo.silo_address
@@ -570,13 +815,85 @@ class SocketFabric:
         msg.forward_count += 1
         return ep
 
-    # -- outbound senders -------------------------------------------------
-    def _sender_for(self, endpoint: str) -> _Sender:
-        """The outbound sender for one endpoint (dialed lazily)."""
+    # -- outbound sender placement (sharded egress) -----------------------
+    def _sender_for(self, endpoint: str):
+        """The outbound sender (or shard handle) for one endpoint. With
+        an egress pool, new links go to the shard that owns the inbound
+        half of the peering (round-robin when connect-side only) and the
+        main loop keeps only the ring feed; without one, the classic
+        main-loop ``_Sender``."""
         sender = self._senders.get(endpoint)
         if sender is None:
-            sender = self._senders[endpoint] = _Sender(self, endpoint)
+            pool = self.egress_pool
+            if pool is not None and not pool.closed:
+                sender = _ShardSenderHandle(
+                    self, pool.shard_for(endpoint), endpoint)
+            else:
+                sender = _Sender(self, endpoint)
+            self._senders[endpoint] = sender
         return sender
+
+    def _classic_sender(self, endpoint: str) -> _Sender:
+        """Force a main-loop ``_Sender`` for one endpoint (egress-pool
+        teardown: shard handles detach and late sends fall back here)."""
+        s = self._senders.get(endpoint)
+        if not isinstance(s, _Sender):
+            s = self._senders[endpoint] = _Sender(self, endpoint)
+        return s
+
+    def _detach_shard_senders(self) -> None:
+        """Egress-pool close: drop the shard handles so later sends
+        build classic senders (the shards flush what they already
+        hold — the clean-shutdown drain)."""
+        for ep, s in list(self._senders.items()):
+            if isinstance(s, _ShardSenderHandle):
+                del self._senders[ep]
+
+    def _record_peer_shard(self, endpoint: str, index: int) -> None:
+        self._peer_shard[endpoint] = index
+
+    def _forget_peer_shard(self, endpoint: str, index: int) -> None:
+        if self._peer_shard.get(endpoint) == index:
+            self._peer_shard.pop(endpoint, None)
+
+    def _egress_dropped(self, shard, msgs: list) -> None:
+        """Bounded backpressure hit: an egress ring past capacity
+        dropped application traffic toward a slow/wedged consumer.
+        Count it, say so once per shard, and recycle the now-dead
+        response envelopes (senders learn via response timeout — the
+        dead-peer drop semantics)."""
+        est = self.egress_stats
+        if est is not None:
+            est.increment(_EG_RING_DROPS, len(msgs))
+        if shard.drops == len(msgs):  # first drop on this shard
+            log.warning("egress ring full (shard %d): dropping "
+                        "application messages toward a slow consumer",
+                        shard.index)
+        dead = [m for m in msgs if m.direction == Direction.RESPONSE]
+        if dead:
+            recycle_messages(dead)
+
+    def sharded_dest(self, dest) -> bool:
+        """True when responses to ``dest`` will encode shard-side (the
+        egress batcher then leaves its dwell stamps for the shard to
+        observe — dwell spans accumulator + ring + sender queue).
+        Derived from the sender/route actually INSTALLED, not from
+        topology: a classic main-loop sender cached from before the
+        pool existed keeps observing dwell loop-side."""
+        pool = self.egress_pool
+        if pool is None or pool.closed or dest is None:
+            return False
+        if dest in self.silos:
+            return False  # in-proc loopback: never leaves the loop
+        w = self.client_routes.get(dest)
+        if w is not None:
+            return getattr(w, "egress_shard", None) is not None
+        if dest in self.dead:
+            return False  # send_batch drops these before any sender
+        s = self._senders.get(dest.endpoint)
+        if s is not None:
+            return isinstance(s, _ShardSenderHandle)
+        return True  # no sender yet: _sender_for builds a shard handle
 
     def _client_encode_error(self, addr: SiloAddress,
                              writer: asyncio.StreamWriter, msg: Message,
@@ -607,9 +924,52 @@ class SocketFabric:
         if self.route_notify is not None:
             self.route_notify(addr, False)
 
+    def _stream_write_client(self, addr: SiloAddress, writer,
+                             data: bytes) -> None:
+        """Main-loop tail of a shard-encoded client write (standalone
+        egress over a plain StreamWriter): the shard already paid the
+        encode; only the fd write lands here."""
+        try:
+            writer.write(data)
+        except Exception:  # noqa: BLE001 — client gone mid-write
+            log.info("dropping message to disconnected client %s", addr)
+            if self.client_routes.get(addr) is writer:
+                self._drop_client_route(addr)
+
+    @staticmethod
+    def _marshal_client_write(writer, data: bytes) -> None:
+        """Egress-pool-teardown fallback for a shard-bound route: the
+        writer's ops are loop-bound, so bytes encoded here marshal to
+        its loop (a dead shard loop means the route is dying anyway)."""
+        try:
+            writer._loop.call_soon_threadsafe(writer.write, data)
+        except RuntimeError:
+            pass
+
     def _write_to_client(self, addr: SiloAddress,
                          writer: asyncio.StreamWriter, msg: Message) -> None:
+        es = getattr(writer, "egress_shard", None)
         native = self._client_native.get(addr, False)
+        if es is not None:
+            # shard-owned route: encode + write happen on the shard.
+            # Clear the local arrival stamp first — on a forwarded
+            # envelope it is INGRESS time, not egress dwell (see
+            # _ShardSenderHandle.feed)
+            msg.received_at = None
+            if not es.pool.closed:
+                if msg.category is not Category.APPLICATION:
+                    es.client_direct(addr, writer, native, msg)
+                else:
+                    es.feed_client(addr, writer, native, [msg])
+                return
+            try:  # pool torn down, route still shard-bound: marshal
+                data = encode_message(msg, native=native)
+            except Exception as e:  # noqa: BLE001
+                log.warning("unencodable message to client %s during "
+                            "egress teardown: %s", addr, e)
+                return
+            self._marshal_client_write(writer, data)
+            return
         lp = self.loop_prof
         tok = lp.enter("egress") if lp is not None else None
         try:
@@ -639,8 +999,25 @@ class SocketFabric:
         for a whole response group — the per-message path encoded and
         wrote each response alone, the exact N-hops-per-inbound-batch
         residue batched egress removes. Encode failures scope to one
-        message via the shared error-response fallback."""
+        message via the shared error-response fallback. Sharded egress:
+        a shard-owned route takes the whole Message list across the
+        shard's egress ring instead — encode (per-shard template
+        cache) + writev + the response recycle sweep all run on the
+        shard loop, and only the ring push stays here."""
         native = self._client_native.get(addr, False)
+        es = getattr(writer, "egress_shard", None)
+        if es is not None:
+            if not es.pool.closed:
+                es.feed_client(addr, writer, native, msgs)
+                return
+            chunks = encode_message_batch(  # teardown fallback: marshal
+                msgs, lambda m, e: log.warning(
+                    "unencodable message to client %s during egress "
+                    "teardown: %s", addr, e),
+                native=native, templates=self.response_templates)
+            if chunks:
+                self._marshal_client_write(writer, b"".join(chunks))
+            return
         lp = self.loop_prof
         tok = lp.enter("egress") if lp is not None else None
         try:
@@ -658,7 +1035,13 @@ class SocketFabric:
                 self.ledger.charge_wire(f"client:{addr}",
                                         tx=sum(len(c) for c in chunks))
             try:
-                writer.write(b"".join(chunks))
+                # shard-owned routes (multiloop.ShardWriter) take the
+                # chunk list whole — it rides one writev, no join copy
+                write_many = getattr(writer, "write_many", None)
+                if write_many is not None:
+                    write_many(chunks)
+                else:
+                    writer.write(b"".join(chunks))
             except Exception:  # noqa: BLE001 — client gone mid-write
                 log.info("dropping batch to disconnected client %s", addr)
                 self._drop_client_route(addr)
@@ -725,6 +1108,14 @@ class SocketFabric:
                 self._route_owner[peer_addr] = silo.silo_address
                 self._client_native[peer_addr] = bool(
                     hs.get("hotwire", False))
+                pool = self.egress_pool
+                if pool is not None and not pool.closed and \
+                        silo.ingress_pool is None:
+                    # standalone-egress residue fix: pin this client
+                    # route to an egress shard so its response encodes
+                    # leave the main loop like silo-peer links already
+                    # do (multi-loop ingress pins routes shard-side)
+                    writer.egress_shard = pool.shard_for_client(peer_addr)
                 if self.route_notify is not None:
                     # multi-process worker: announce the route so the
                     # owner can relay responses produced elsewhere
@@ -798,8 +1189,9 @@ class SocketFabric:
         ``unpack_batch`` C call on the native build) and the decoded list
         rides one batched hand-off into the message center — the
         receive-side symmetric of the sender's greedy ``_drain_batch``.
-        The cost ledger (when enabled) is passed live into the reader for
-        per-route rx charges."""
+        This pump runs ON the silo's loop, so the cost ledger (when
+        enabled) is passed live into the reader for per-route rx
+        charges."""
         async for msgs, bounces in _read_frame_batches(reader, ist,
                                                        silo.ledger, route,
                                                        strict_tail=True):

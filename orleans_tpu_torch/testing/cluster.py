@@ -413,12 +413,9 @@ class TestCluster:
 
     def export_trace(self, path: str, trace_id: int | None = None) -> str:
         """Merge spans from every silo + the client into one Chrome-trace/
-        Perfetto JSON timeline file; returns ``path``. Needs
-        ``observability/export.py``, which the port does not hold yet:
-        refused (ROADMAP Queue 1 item 17); ``trace_spans`` has the spans."""
-        raise NotImplementedError(
-            "export_trace needs observability/export.py, which "
-            "orleans_tpu_torch does not port yet (ROADMAP Queue 1 item 17)")
+        Perfetto JSON timeline file; returns ``path``."""
+        from ..observability.export import write_chrome_trace
+        return write_chrome_trace(path, self.trace_spans(trace_id))
 
     @property
     def alive_silos(self) -> list:

@@ -271,7 +271,9 @@ async def drive_presence(build, client_cls, storage, player, game, sched,
     final checkpoint), a silo that restores the checkpoint (its table
     must equal the pre-stop table bit for bit), and a storage-only silo
     that reloads ``sched.sample`` through its bridge and calls each key
-    again. ``profile(step)``, when given, returns a context manager
+    again. With ``storage`` None (and ``checkpoint_dir`` None) the silo
+    has no write-behind and no checkpoints, and (6) is left out.
+    ``profile(step)``, when given, returns a context manager
     wrapped around the last batch of (2) (``step`` "batch") and the last
     summary of (5) ("summary"). The stats give each step's wall time, the
     part of it that write-behind flushes overlapped (``<step>_flush_s``),
@@ -286,31 +288,33 @@ async def drive_presence(build, client_cls, storage, player, game, sched,
     res: dict = {}
     st: dict = {}
     clock = time.perf_counter
+    durable = storage is not None
     silo = build(storage, checkpoint_dir)
-    bridge = silo.vector_bridges[player]
     flushes: list = []  # (rows, start, end, started by silo.stop())
     steps: dict = {}  # step -> (start, end)
     batches: list = []  # (start, end) of each client.call_batch batch
     summaries: list = []  # (start, end) of each summary call
     stopping = [False]
     stalls: list = []  # (start, end) of each event-loop stall
-    flush = bridge.flush
-
-    async def timed_flush(keys, strict=False):
-        t0, final = clock(), stopping[0]
-        done = await flush(keys, strict=strict)
-        flushes.append((done, t0, clock(), final))
-        return done
-    bridge.flush = timed_flush
-    ckpt = silo.vector_checkpointer
-    save = ckpt.save
     saves: list = []
+    if durable:
+        bridge = silo.vector_bridges[player]
+        flush = bridge.flush
 
-    def timed_save(step):
-        t0 = clock()
-        save(step)
-        saves.append(clock() - t0)
-    ckpt.save = timed_save
+        async def timed_flush(keys, strict=False):
+            t0, final = clock(), stopping[0]
+            done = await flush(keys, strict=strict)
+            flushes.append((done, t0, clock(), final))
+            return done
+        bridge.flush = timed_flush
+        ckpt = silo.vector_checkpointer
+        save = ckpt.save
+
+        def timed_save(step):
+            t0 = clock()
+            save(step)
+            saves.append(clock() - t0)
+        ckpt.save = timed_save
 
     async def watch_loop():
         last = clock()
@@ -435,6 +439,8 @@ async def drive_presence(build, client_cls, storage, player, game, sched,
                                        if f is last)
         st[f"{kind}_flush_s"] = sum(e - s for _, s, e, f in flushes
                                     if f is last)
+    if not durable:
+        return res, st
     st["save_s"] = saves[-1]
     step = ckpt.latest_step()
     st["checkpoint_bytes"] = _dir_bytes(

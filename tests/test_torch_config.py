@@ -5,11 +5,11 @@ The cases of tests/test_config.py run against both packages with the same
 inputs: every validator rejects what the reference's rejects, with the
 same message, and ``flatten``/``apply_options``/``with_options`` give the
 same flat ``SiloConfig``, field for field. Tolerance: exact (the values are
-the inputs). The port differs on purpose in two places, each tested here:
-``DispatchOptions`` has no ``exchange_capacity``, and a group whose module
-is not ported is accepted by ``with_options`` and refused by ``build()``.
-``batched_egress`` defaults to on in both packages (the egress batcher is
-ported).
+the inputs). The port differs on purpose in one place, tested here:
+``DispatchOptions`` has no ``exchange_capacity``. ``batched_egress``
+defaults to on in both packages (the egress batcher is ported), and the
+groups of the multi-process and multi-loop silos, metrics, SLO, ledger and
+OTLP export build as the reference's do (their modules are ported).
 """
 
 import dataclasses
@@ -250,6 +250,8 @@ def test_messaging_batched_egress_defaults_off_in_port():
         batched_egress=False)).build().message_center.egress is None
 
 
+# the groups of ROADMAP Queue 1 items 16-17, refused at build() until
+# their modules were ported; the ids are the refusal tests' ids
 UNPORTED = [
     (tc.MessagingOptions, {"worker_procs": 2}, "multiproc"),
     (tc.MessagingOptions, {"ingress_loops": 2}, "multiloop"),
@@ -267,9 +269,20 @@ UNPORTED = [
                          ids=[f"{g.__name__}-{'-'.join(kw)}"
                               for g, kw, _ in UNPORTED])
 def test_unported_groups_are_refused_at_build(group, kw, module):
-    b = tr.SiloBuilder().with_options(group(**kw))
-    with pytest.raises(NotImplementedError, match=module):
-        b.build()
+    """Each group now builds as the JAX package's does: the same flat
+    ``SiloConfig`` (no refusal), or for ``worker_procs`` on the in-process
+    fabric the same ``ConfigurationError`` (SO_REUSEPORT needs a
+    ``SocketFabric``)."""
+    def outcome(pkg):
+        b = pkg.rt.SiloBuilder().with_options(
+            getattr(pkg.c, group.__name__)(**kw))
+        try:
+            return "built", _flat(b.build().config)
+        except pkg.err as e:
+            return "refused", str(e)
+    j, t = _both(outcome)
+    assert t == j
+    assert t[0] == ("refused" if module == "multiproc" else "built")
 
 
 def test_log_options_dumps_every_field(caplog):

@@ -1,15 +1,13 @@
 """The port's batched egress (orleans_tpu_torch.runtime.egress) and the
 batched ingress hand-off into the engine, on the CPU.
 
-The port's copies of tests/test_batched_egress.py (all but the three
-tests that read metrics or tracing export, which the port refuses until
-ROADMAP item 17) and of the engine hand-off tests of
-tests/test_batched_ingress.py: the header-prefix template's bytes, the
-per-destination flush accumulator and its FIFO guard, the QoS bypass for
-PING/SYSTEM responses, batched client correlation, pool discipline, and
-vector and host traffic over real sockets with either lever, through the
-port. ``test_vector_batch_correct_and_ordered`` runs without
-``metrics_enabled`` (refused by the port; the test reads no metric).
+The port's copies of tests/test_batched_egress.py and of the engine
+hand-off tests of tests/test_batched_ingress.py: the header-prefix
+template's bytes, the per-destination flush accumulator and its FIFO
+guard, the QoS bypass for PING/SYSTEM responses, batched client
+correlation, pool discipline, vector and host traffic over real sockets
+with either lever, the egress stage metrics when on and nothing when off,
+and the response-leg span over the batched path, through the port.
 Vector grains use ``make_mesh(1, device="cpu")``. Every async body runs
 under ``asyncio.wait_for(..., 30)``.
 """
@@ -30,6 +28,7 @@ from orleans_tpu_torch.core.message import (Direction, Message,
                                             make_rejection, make_request,
                                             make_response, pool_generation,
                                             recycle_messages, set_debug_pool)
+from orleans_tpu_torch.observability.stats import EGRESS_STATS
 from orleans_tpu_torch.parallel import make_mesh
 from orleans_tpu_torch.runtime import Grain, SiloBuilder
 from orleans_tpu_torch.runtime.egress import EgressBatcher
@@ -606,7 +605,8 @@ async def test_batch_preserves_order_within_grain():
 @bounded
 async def test_vector_batch_correct_and_ordered():
     CounterVec = _vector_counter()
-    silo, client, _ = await _socket_cluster(CounterVec, n_keys=64)
+    silo, client, _ = await _socket_cluster(CounterVec, n_keys=64,
+                                            metrics_enabled=True)
     try:
         refs = [client.get_grain(CounterVec, k) for k in range(64)]
         # concurrent burst across keys: one bump each
@@ -827,6 +827,83 @@ async def test_deliver_batch_honors_receiver_batched_ingress_off():
         reads = await asyncio.gather(
             *(client.get_grain(CounterVec, k).read() for k in range(4)))
         assert [int(v) for v in reads] == [1] * 4
+    finally:
+        await client.close_async()
+        await silo.stop()
+
+
+# ---------------------------------------------------------------------------
+# Metrics: stages populated when on, nothing when off
+# ---------------------------------------------------------------------------
+
+@bounded
+async def test_egress_stats_populated_and_gauge_registered():
+    CounterVec = _vector_counter()
+    silo, client, _ = await _socket_cluster(CounterVec,
+                                            metrics_enabled=True,
+                                            metrics_sample_period=0.05)
+    try:
+        await asyncio.gather(*client.call_batch(
+            CounterVec, "bump",
+            [(k, {"x": np.int32(0)}) for k in range(32)]))
+        await asyncio.sleep(0.15)  # a sampler tick
+        snap = silo.stats.snapshot()
+        assert snap["counters"].get(EGRESS_STATS["responses"], 0) > 0
+        hists = snap["histograms"]
+        for stage in ("build", "dwell", "group"):
+            assert hists.get(EGRESS_STATS[stage], {}).get("count", 0) > 0, \
+                f"egress stage {stage} never observed"
+        # encode is observed fabric-side (shared senders) — present too
+        assert hists.get(EGRESS_STATS["encode"], {}).get("count", 0) > 0
+        assert hists[EGRESS_STATS["group"]]["mean"] > 1.0, \
+            "responses are not grouping (mean flush-group size <= 1)"
+        assert "vector.egress_group" in snap["gauges"]
+    finally:
+        await client.close_async()
+        await silo.stop()
+
+
+@bounded
+async def test_egress_disabled_costs_nothing():
+    """metrics_enabled=False: no EGRESS series may materialize — the off
+    path pays one None check per site, the ingest-stage discipline."""
+    CounterVec = _vector_counter()
+    silo, client, _ = await _socket_cluster(CounterVec)
+    try:
+        await asyncio.gather(*client.call_batch(
+            CounterVec, "bump",
+            [(k, {"x": np.int32(0)}) for k in range(16)]))
+        for name in EGRESS_STATS.values():
+            assert name not in silo.stats.histograms
+            assert name not in silo.stats.counters
+    finally:
+        await client.close_async()
+        await silo.stop()
+
+
+# ---------------------------------------------------------------------------
+# Tracing parity on the batched path
+# ---------------------------------------------------------------------------
+
+@bounded
+async def test_response_leg_span_rides_batched_egress():
+    """_stamp_response's wall stamp crosses the batched wire in the
+    template's varying request_context field; the client's batched
+    correlation records the response-leg network span identically."""
+    CounterVec = _vector_counter()
+    silo, client, EchoGrain = await _socket_cluster(
+        CounterVec, trace_enabled=True, metrics_enabled=True)
+    client.enable_tracing(sample_rate=1.0)
+    try:
+        g = client.get_grain(EchoGrain, "traced")
+        assert await asyncio.gather(*(g.ping(i) for i in range(8))) == \
+            list(range(8))
+        # the batched pipeline actually carried the responses
+        assert silo.stats.get(EGRESS_STATS["responses"]) > 0
+        spans = client.tracer.snapshot()
+        legs = [s for s in spans if s["kind"] == "network"
+                and s["attrs"].get("leg") == "response"]
+        assert legs, f"no response-leg network span in {spans}"
     finally:
         await client.close_async()
         await silo.stop()

@@ -7,9 +7,9 @@ one after the other, never interleaved on one loop (each package's silo
 installs its own eager task factory), and what each observed must be
 equal exactly. Silos are named by their index, not by the fabric's
 per-package addresses; timings enter only as the reference's own
-thresholds. Two deviations, both forced by unported modules: the
-critical-path report runs without ``metrics_enabled`` (observability
-/metrics.py is ROADMAP item 17), and the cluster ledger is refused.
+thresholds. The critical-path report runs with ``metrics_enabled`` as
+the reference's does, and the cluster ledger merges each silo's
+``ctl_ledger``.
 
 ``Silo._pull_trace_legs`` fans ``ctl_trace_spans`` out to the peers again
 now that ``management.control`` is ported: the cross-silo leg pull and
@@ -342,7 +342,8 @@ def test_manage_cli_main_prints_the_op():
 
 async def _critical_path(pkg):
     fabric, silos, client = await _start_cluster(
-        pkg, profiling_enabled=True, profiling_window=0.05)
+        pkg, profiling_enabled=True, profiling_window=0.05,
+        metrics_enabled=True)
     try:
         for k in range(40):
             await client.get_grain(pkg.g.Work, k).work()
@@ -363,8 +364,8 @@ async def _critical_path(pkg):
 async def test_cluster_critical_path_report():
     """get_cluster_critical_path merges every silo's loop occupancy and
     stage histograms; the shares are per-category loop seconds over the
-    summed loop wall, so they sum to about 1.0. Without metrics (not
-    ported) no stage histogram is observed, in either package."""
+    summed loop wall, so they sum to about 1.0; with metrics on, the
+    same ingest stages are observed in both packages."""
     wall, shares, procs, per_proc, stages, dev = \
         await _parity(_critical_path)
     assert wall and shares
@@ -451,11 +452,28 @@ async def test_pull_dedups_span_ids_across_fanout(monkeypatch):
     assert await _parity(_dedup, monkeypatch) == [100, 101, 103, None]
 
 
-async def test_cluster_ledger_is_refused_until_the_ledger_is_ported():
-    fabric, silos, client = await _start_cluster(T, n=1)
+async def _cluster_ledger(pkg):
+    fabric, silos, client = await _start_cluster(
+        pkg, ledger_enabled=True, ledger_top_k=8)
     try:
-        mgmt = client.get_grain(T.mg.ManagementGrain, 0)
-        with pytest.raises(NotImplementedError, match="item 17"):
-            await asyncio.wait_for(mgmt.get_cluster_ledger(), TIMEOUT)
+        for k in range(6):
+            await client.get_grain(pkg.g.Work, k % 3).work()
+        mgmt = client.get_grain(pkg.mg.ManagementGrain, 0)
+        led = await mgmt.get_cluster_ledger(8)
+        idx = _index(silos)
+        return (led["turns"]["WorkGrain.work"][0],
+                sorted(led["keys"]["counts"]),
+                sorted(idx[s] for s in led["per_silo"]),
+                led["worst_burner"]["key"].startswith("WorkGrain/"))
     finally:
         await _stop_all(silos, client)
+
+
+async def test_cluster_ledger_is_refused_until_the_ledger_is_ported():
+    """The cluster ledger (refused until observability/ledger.py was
+    ported): ``get_cluster_ledger`` merges every silo's ``ctl_ledger`` —
+    the same turn counts, key labels and silos as the JAX package's."""
+    turns, keys, silos, worst = await _parity(_cluster_ledger)
+    assert turns == 6
+    assert keys == ["WorkGrain/0", "WorkGrain/1", "WorkGrain/2"]
+    assert silos == [0, 1] and worst

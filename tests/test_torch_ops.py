@@ -401,7 +401,10 @@ def test_port_imports_no_jax():
         "'observability.profiling', 'dispatch.reshard', "
         "'dispatch.replicated', 'dispatch.engine', 'dispatch.hosting', "
         "'interop', 'runtime.silo', 'runtime.dispatcher', "
-        "'storage.checkpoint', 'directory.locator'):\n"
+        "'storage.checkpoint', 'directory.locator', "
+        "'observability.ledger', 'observability.metrics', "
+        "'observability.slo', 'observability.export', "
+        "'runtime.multiloop', 'runtime.multiproc'):\n"
         "    assert 'orleans_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('orleans_tpu_torch')]))\n")

@@ -1,13 +1,12 @@
 """Parity of the port's live rebalancing (orleans_tpu_torch.rebalance: the
 planner, the executor and the service) with the JAX package's, on the CPU.
 
-Thirteen of the fourteen scenarios of tests/test_rebalance.py run through
-each package one after the other, never interleaved on one loop (each
+The fourteen scenarios of tests/test_rebalance.py run through each
+package one after the other, never interleaved on one loop (each
 package's silo installs its own eager task factory), and what each
 observed must be equal exactly: rows moved, the shards keys end on,
-every counter, the silos activations end on (named by index).
-``test_ledger_hot_actor_gets_move_counts_never_planned`` waits for the
-cost ledger (ROADMAP Queue 1 item 17).
+every counter, the silos activations end on (named by index), and the
+move the cost ledger's hot-actor pass plans.
 
 The planner's device-tier plan is held against the reference's exactly:
 the same table (built in the JAX package, carried across with
@@ -492,6 +491,70 @@ async def test_three_silo_convergence_soak():
     """A heavily skewed 3-silo cluster converges within the imbalance
     ratio over several rounds without thrashing."""
     assert await _parity(_soak) == ([1] * 30, [2] * 30, True)
+
+
+class SplitDirector:
+    """Keys prefixed 'a' land on silo A, everything else on silo B —
+    the count-balanced skew generator: counts say balanced, the cost
+    ledger says silo A hosts the burner."""
+
+    def __init__(self, a, b):
+        self.a, self.b = a, b
+
+    def place(self, grain_id, requester, silos):
+        want = self.a if str(grain_id.key).startswith("a") else self.b
+        return want if want in silos else silos[0]
+
+
+async def _ledger_hot_actor(pkg):
+    cluster = (pkg.testing.TestClusterBuilder(2).add_grains(pkg.Hot)
+               .with_config(ledger_enabled=True, ledger_top_k=16)
+               .build())
+    async with cluster:
+        silo_a, silo_b = cluster.silos
+        for s in cluster.silos:
+            s.locator.placement.directors["pin_first"] = \
+                SplitDirector(silo_a.silo_address, silo_b.silo_address)
+        grains = [cluster.grain(pkg.Hot, f"{side}-{i}")
+                  for side in ("a", "b") for i in range(4)]
+        first = await asyncio.gather(*(g.incr() for g in grains))
+        # level the COUNTS exactly: filler grains onto the lighter silo
+        for i in range(64):
+            ca = silo_a.catalog.activation_count()
+            cb = silo_b.catalog.activation_count()
+            if ca == cb:
+                break
+            side = "a" if ca < cb else "b"
+            await cluster.grain(pkg.Hot, f"{side}-fill-{i}").incr()
+        level = silo_a.catalog.activation_count() == \
+            silo_b.catalog.activation_count()
+        for s in cluster.silos:   # refresh the broadcast load view NOW
+            s.load_publisher._publish()
+        await asyncio.sleep(0)    # let the load_report turns land
+        # a skewed window through the public charge verb: one burner,
+        # three background keys
+        led = silo_a.ledger
+        led.charge_turn("IHot", "incr", 10.0, key="HotGrain/a-0")
+        for i in range(1, 4):
+            led.charge_turn("IHot", "incr", 0.05, key=f"HotGrain/a-{i}")
+        planner = pkg.rb.RebalancePlanner
+        silo_a.config.rebalance_use_ledger = False
+        off = planner(silo_a, budget=4, imbalance_ratio=1.5).plan()
+        silo_a.config.rebalance_use_ledger = True
+        on = planner(silo_a, budget=4, imbalance_ratio=1.5).plan()
+        idx = {silo_a.silo_address: 0, silo_b.silo_address: 1}
+        return (first, level, len(off.activation_moves),
+                [(m.act.grain_class.__name__, m.act.grain_id.key,
+                  idx[m.dest]) for m in on.activation_moves])
+
+
+async def test_ledger_hot_actor_gets_move_counts_never_planned():
+    """A silo whose activation COUNTS are balanced but whose cost ledger
+    names a hot local grain: the count-based pass plans nothing, and
+    with ``rebalance_use_ledger=True`` the ledger pass plans a move for
+    exactly the named burner, in both packages."""
+    assert await _parity(_ledger_hot_actor) == (
+        [1] * 8, True, 0, [("HotGrain", "a-0", 1)])
 
 
 # ----------------------------------------------------------------------

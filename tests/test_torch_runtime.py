@@ -2,9 +2,10 @@
 against the JAX package's, on the CPU.
 
 Host grains run through a silo of each package with the same calls and
-must return the same values and store the same state; the options whose
-modules the port does not hold yet are refused when the silo is built;
-a profiled hosted silo books the off-loop worker's completions to
+must return the same values and store the same state; a replicated
+journaled grain (its module not ported yet) is refused when the silo is
+built, and every option once refused builds a silo that answers; a
+profiled hosted silo books the off-loop worker's completions to
 ``tick_schedule``; a traced hosted silo records the JAX package's span
 kinds; the serializer copies tensors, reads and writes the JAX package's
 hotwire frames byte for byte and refuses a tensor on the wire.
@@ -148,20 +149,42 @@ class _Replicated(tr.Grain):
     ("with_options", True, "config.py"),
 ])
 def test_unported_option_raises_at_build(option, value, module):
+    """Only a replicated journaled grain is still refused at ``build()``
+    (ROADMAP Queue 1 item 18). Every option of items 16-17 builds a silo
+    that starts and answers, with ``with_config`` and through an options
+    group — but ``worker_procs``, which on the in-process fabric meets the
+    JAX package's own ``ConfigurationError`` (SO_REUSEPORT needs a
+    ``SocketFabric``; tests/test_torch_socket.py starts it on one)."""
     b = tr.SiloBuilder().add_grains(THello)
-    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-        if option == "journal_replicated":
+    if option == "journal_replicated":
+        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
             b.add_grains(_Replicated).build()
-        elif option == "with_options":
-            # a group whose module is not ported: accepted by config.py,
-            # refused by build() naming the group
-            from orleans_tpu_torch.config import MetricsOptions
-            b.with_options(MetricsOptions(enabled=value)).build()
-        else:
-            b.with_config(**{option: value}).build()
-    assert module in str(e.value)
-    # the defaults build
-    assert tr.SiloBuilder().add_grains(THello).build().status == "Created"
+        assert module in str(e.value)
+        return
+    if option == "with_options":
+        from orleans_tpu_torch.config import MetricsOptions
+        b.with_options(MetricsOptions(enabled=value))
+    else:
+        b.with_config(**{option: value})
+    if option == "worker_procs":
+        from orleans_tpu_torch.core.errors import ConfigurationError
+        with pytest.raises(ConfigurationError, match="SocketFabric"):
+            b.build()
+        return
+    silo = b.build()
+
+    async def run():
+        await silo.start()
+        client = await tr.ClusterClient(silo.fabric).connect()
+        try:
+            return await client.get_grain(THello, 1).say_hello("hi")
+        finally:
+            await client.close_async()
+            await silo.stop()
+
+    assert asyncio.run(asyncio.wait_for(run(), TIMEOUT)) == \
+        "You said: 'hi', I say: Hello!"
+    assert silo.status == "Stopped"
 
 
 async def test_profiled_silo_books_worker_completions_to_tick_schedule():

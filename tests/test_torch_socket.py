@@ -9,10 +9,10 @@ on the CPU, over real localhost sockets.
   tier behind a gateway, ``make_mesh(8, device="cpu")``),
   tests/test_observers.py::test_observer_push_over_tcp and the two wire
   tests of tests/test_cancellation.py, run through the port.
-* The options whose modules the port does not hold yet
-  (``ingress_loops > 1``, ``egress_shards > 0``, ``worker_procs > 1``) are
-  refused when a silo on a ``SocketFabric`` is built, naming the options
-  group that sets each.
+* The fabric options once refused (``ingress_loops > 1``,
+  ``egress_shards > 0``, ``worker_procs > 1``), set by ``with_config`` or
+  their options group, start a silo on a ``SocketFabric`` that answers a
+  gateway client, and the SO_REUSEPORT listener joins its port's group.
 * samples/presence_torch.py's drive at 2,000 players: over a
   ``GatewayClient`` on the port, over ``ClusterClient`` on the port, and
   over the JAX package's ``GatewayClient`` to its own silo; every answer,
@@ -689,7 +689,8 @@ async def test_cancel_crosses_the_wire(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Options the port's fabric cannot serve yet are refused at build()
+# The fabric options of the multi-loop and multi-process silos, once
+# refused at build(), start a silo that answers (the refusal tests' ids)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option, value, group, module", [
@@ -701,26 +702,70 @@ async def test_cancel_crosses_the_wire(tmp_path):
      "runtime/multiproc.py"),
 ])
 @pytest.mark.parametrize("how", ["with_config", "with_options"])
-def test_socket_silo_refuses_unported_fabric_options(option, value, group,
-                                                     module, how):
+@bounded
+async def test_socket_silo_refuses_unported_fabric_options(option, value,
+                                                           group, module,
+                                                           how):
+    """A silo on a ``SocketFabric`` with the option set through
+    ``with_config`` or its options group builds, starts the module's
+    machinery (ingress shards, egress shards, forked workers) and answers
+    a gateway client on its gateway endpoint."""
     from orleans_tpu_torch.config import MessagingOptions
-    b = SiloBuilder().with_fabric(SocketFabric()).add_grains(Worker)
+    b = SiloBuilder().with_fabric(SocketFabric()).add_grains(EchoGrain)
     if how == "with_config":
         b.with_config(**{option: value})
     else:
         b.with_options(MessagingOptions(**{option: value}))
-    with pytest.raises(NotImplementedError, match="item 16") as e:
-        b.build()
-    assert group in str(e.value) and module in str(e.value)
-    # the defaults build on the same fabric
-    silo = SiloBuilder().with_fabric(SocketFabric()).add_grains(
-        Worker).build()
-    assert silo.status == "Created" and silo.message_center.egress is not None
+    silo = b.build()
+    assert getattr(silo.config, option) == value
+    await silo.start()
+    client = None
+    try:
+        started = {"ingress_loops": silo.ingress_pool,
+                   "egress_shards": silo.fabric.egress_pool,
+                   "worker_procs": silo.workers}[option]
+        assert started is not None, module
+        client = await GatewayClient([silo.gateway_endpoint],
+                                     response_timeout=10.0).connect()
+        assert await client.get_grain(EchoGrain, 3).echo("x") == "3:x"
+    finally:
+        if client is not None:
+            await client.close_async()
+        await silo.stop()
 
 
 def test_reuseport_listener_is_refused():
-    with pytest.raises(NotImplementedError, match="multiproc"):
-        SocketFabric().allocate_address("gw", reuseport=True)
+    """``allocate_address(reuseport=True)`` (a multi-process silo's
+    advertised endpoint, once refused) reserves a port in an SO_REUSEPORT
+    group: another reuseport listener binds the same port."""
+    import socket
+    from orleans_tpu_torch.runtime.multiproc import _reuseport_listener
+    fabric = SocketFabric()
+    addr = fabric.allocate_address("gw", reuseport=True)
+    sock = fabric._listen_socks[addr.endpoint]
+    try:
+        assert sock.getsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT)
+        second = _reuseport_listener(addr.host, addr.port)
+        assert second.getsockname() == sock.getsockname()
+        second.close()
+    finally:
+        sock.close()
+
+
+def test_generations_made_in_one_millisecond_are_distinct(monkeypatch):
+    """A gateway client's pseudo address is the gateway endpoint plus a
+    fresh generation, so two clients of one gateway differ only by it.
+    4,096 generations made in one millisecond (the clock held still) are
+    all distinct and carry that millisecond in their high bits. With 12
+    random low bits, two clients made in one millisecond collided (about
+    one run in six of the churn-storm gauntlet), the later one's route
+    replaced the earlier one's, and its teardown dropped the route of a
+    live client, whose next answer never arrived."""
+    import orleans_tpu_torch.runtime.socket_fabric as sf
+    monkeypatch.setattr(sf.time, "time", lambda: 1_700_000_000.0)
+    gens = [sf._fresh_generation() for _ in range(4096)]
+    assert len(set(gens)) == 4096
+    assert {g >> 12 for g in gens} == {1_700_000_000_000}
 
 
 # ---------------------------------------------------------------------------
