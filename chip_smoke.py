@@ -94,12 +94,28 @@ the script exits non-zero without its result line):
    egress shard encoding; then M1's heartbeats and M2's drive at 20,000
    players on the card and on the CPU, equal to each other, and M2 equal
    to Phase I on its steps.
+16. Phase N: durable streams, reminders, event sourcing and transactions.
+   N1: the persistent provider's vector path (1,048,576 sensors x 8
+   shards, ``device_fanout`` on, so K2 ranks every delivered chunk) over
+   a ``SqliteQueueAdapter`` file: items 1 and 2 delivered with durable
+   acks, the silo stopped, items 3 and 4 produced into the file with no
+   silo, and a new silo resuming from the durable cursor, whose rows must
+   hold exactly items 3 and 4. N2: a Presence silo at 1,048,576 players
+   with reminders on a ``SqliteReminderTable`` file, transactions over a
+   ``SqliteTransactionLog`` file and ``GameJournalGrain`` journals: 64
+   reminders of 0.5 s, each fire one ``GameGrain.summary`` (K1) confirmed
+   as a journal event, 1,000 transfers among 64 accounts meanwhile; the
+   journals' versions equal the counted fires and K1's launches, every
+   summary the numpy model, the balances conserved; then a new silo on
+   the same files whose reminders fire again with no new registration.
+   Then N1 (SQLite and file queues) and N2 at 20,000 on the card and on
+   the CPU, compared exactly.
 
 Phase H runs at 262,144 players (L1 runs its drive at full width). The
 launch counts are set to 0 just before Phase A and read just after Phase
-C, and again around Phases E, G, H, J, K, L and M: a kernel of a path
+C, and again around Phases E, G, H, J, K, L, M and N: a kernel of a path
 that was not launched fails the run (A-C launch both kernels, G, J and K
-launch K2, H, L and M both; E's tick uses neither). The last two lines are
+launch K2, H, L, M and N both; E's tick uses neither). The last two lines are
 the ``kernels`` JSON (launches summed over those runs, errors and times
 in ms) and ``{"ok": true, "device": ...}``.
 """
@@ -147,6 +163,14 @@ L2_CALLS = 65536  # Phase L2: heartbeats through silo 0's gateway
 N_M = 1 << 20  # Phase M: players of the multi-process and multi-loop silos
 M_CALLS = 65536  # Phase M1: heartbeats through the workers' rings
 M_CALLS_CPU = 16384  # Phase M1 at N_I players, card against the CPU
+N_N = 1 << 20  # Phase N: sensors of N1 and players of N2
+N_N_CPU = 20_000  # Phase N against the CPU
+N_CHUNK = 16384  # the engine's stream_fanout chunk: one K2 launch each
+N_PERIOD = 0.5  # Phase N2: the summary reminders' period, seconds
+N_FIRES = 4  # Phase N2: fires of every reminder before the restart
+N_TRANSFERS = 1000  # Phase N2: transactional transfers
+N_ACCOUNTS = 64  # Phase N2: host-tier accounts
+N_BALANCE = 1000  # Phase N2: each account's opening balance
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2971,6 +2995,422 @@ def phase_m(dev, card, got_i) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase N: durable streams, reminders, event sourcing and transactions
+# ---------------------------------------------------------------------------
+
+def durable_adapter(kind: str, tmp: str):
+    """A durable queue adapter of one queue on the file(s) under ``tmp``:
+    ``SqliteQueueAdapter`` (``queue.db``) or ``FileQueueAdapter``
+    (``queue/``). Each call opens the same file anew."""
+    from orleans_tpu_torch.streams import FileQueueAdapter, SqliteQueueAdapter
+    if kind == "sqlite":
+        return SqliteQueueAdapter(os.path.join(tmp, "queue.db"), n_queues=1)
+    return FileQueueAdapter(os.path.join(tmp, "queue"), n_queues=1)
+
+
+def acked_seqs(kind: str, tmp: str) -> set:
+    """The batch tokens the queue's file holds as acknowledged, read from
+    the file itself (a connection of its own, or the ack log)."""
+    if kind == "sqlite":
+        import sqlite3
+        db = sqlite3.connect(os.path.join(tmp, "queue.db"))
+        try:
+            return {s for (s,) in db.execute(
+                "SELECT seq FROM stream_batches WHERE acked=1")}
+        finally:
+            db.close()
+    path = os.path.join(tmp, "queue", "q0.ack")
+    if not os.path.exists(path):
+        return set()
+    with open(path, encoding="utf-8") as f:
+        return {int(x) for x in f.read().split()}
+
+
+def drive_durable(dev, n, kind: str = "sqlite") -> tuple:
+    """N1: the persistent provider's vector path over a durable queue file,
+    across a stop and a restart. A silo (8 shards on ``dev``,
+    ``StreamOptions(device_fanout=True)``, so each bulk item rides
+    ``stream_fanout`` with K2 on every chunk) produces items 1 and 2 of
+    ``{"keys": arange(n), "args": {"v": key % 7}}`` and delivers them; once
+    the file holds both acks the silo stops. Items 3 and 4 are produced
+    into the same file with no silo running, and a new silo on the file
+    resumes from its durable cursor. Its rows must hold exactly the
+    effect of items 3 and 4 (an item delivered twice or lost shows
+    there). Returns (rows, stats)."""
+    from orleans_tpu_torch.config import StreamOptions
+    from orleans_tpu_torch.dispatch import add_vector_grains
+    from orleans_tpu_torch.ops import RANK_BY_DEST
+    from orleans_tpu_torch.parallel import make_mesh
+    from orleans_tpu_torch.runtime import InProcFabric, SiloBuilder
+    from orleans_tpu_torch.streams import StreamId, add_persistent_streams
+    Sensor = sensor_class()
+    v = (np.arange(n) % 7).astype(np.float32)
+    item = {"keys": np.arange(n), "args": {"v": v}}
+    stream = StreamId("queue", "telemetry", "bulk")
+    tmp = build_tmpdir("phase_n_queue_")
+    st: dict = {}
+    clock = time.perf_counter
+
+    async def silo_on(adapter):
+        b = (SiloBuilder().with_name(f"phase-n-{kind}")
+             .with_fabric(InProcFabric())
+             .with_options(StreamOptions(device_fanout=True)))
+        add_vector_grains(b, Sensor, mesh=make_mesh(SHARDS_B, dev),
+                          capacity_per_shard=-(-n // SHARDS_B),
+                          dense={Sensor: n})
+        add_persistent_streams(b, "queue", adapter, pull_period=0.005)
+        silo = b.build()
+        await silo.start()
+        return silo
+
+    async def acked(want: set, label: str, timeout: float = 120.0):
+        deadline = clock() + timeout
+        while not want <= acked_seqs(kind, tmp):
+            assert clock() < deadline, \
+                f"{label}: acked {sorted(acked_seqs(kind, tmp))}"
+            await asyncio.sleep(0.005)
+
+    def close(adapter):
+        if kind == "sqlite":
+            adapter.close()
+
+    async def run():
+        k2 = RANK_BY_DEST.launches
+        a1 = durable_adapter(kind, tmp)
+        t0 = clock()
+        silo = await silo_on(a1)
+        st["start_s"] = clock() - t0
+        try:
+            got = lambda: silo.stats.get("streams.vector.delivered")  # noqa: E731
+            t0 = clock()
+            for _ in range(2):
+                await silo.stream_providers["queue"].produce(stream, [item])
+            st["produce_s"] = clock() - t0
+            await await_count(got, 2 * n, f"Phase N1 {kind} items 1-2")
+            await acked({0, 1}, f"Phase N1 {kind} acks of items 1-2")
+            st["first_s"] = clock() - t0
+        finally:
+            t0 = clock()
+            await silo.stop()
+            close(a1)
+            st["stop_s"] = clock() - t0
+        a2 = durable_adapter(kind, tmp)
+        t0 = clock()
+        for _ in range(2):  # no silo runs: the file is the queue service
+            await a2.queue_message_batch(a2.queue_of(stream), stream, [item])
+        st["offline_produce_s"] = clock() - t0
+        t0 = clock()
+        silo = await silo_on(a2)
+        try:
+            got = lambda: silo.stats.get("streams.vector.delivered")  # noqa: E731
+            await await_count(got, 2 * n, f"Phase N1 {kind} items 3-4")
+            await acked({0, 1, 2, 3}, f"Phase N1 {kind} acks of items 3-4")
+            st["resume_s"] = clock() - t0
+            st["resumed_delivered"] = got()
+            rows = dense_rows([silo], Sensor, n)
+        finally:
+            await silo.stop()
+            close(a2)
+        st["k2"] = RANK_BY_DEST.launches - k2
+        return rows
+
+    try:
+        rows = asyncio.run(run())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert st["resumed_delivered"] == 2 * n, \
+        f"Phase N1 {kind}: the resumed silo delivered {st['resumed_delivered']}"
+    assert (rows["events"] == 2).all(), \
+        f"Phase N1 {kind}: a row off the effect of items 3 and 4 " \
+        f"(events {np.unique(rows['events'])})"
+    assert (rows["total"] == 2 * v).all(), f"Phase N1 {kind}: totals"
+    if dev.type == "cuda":
+        want = 4 * -(-n // N_CHUNK)
+        assert st["k2"] == want, \
+            f"Phase N1 {kind}: K2 launched {st['k2']} times, not {want}"
+    return rows, st
+
+
+def transfer_classes():
+    """A host-tier account and a bank that moves money between two
+    accounts in one transaction (the accounts of tests/test_transactions.py,
+    with no funds check, so the final balances do not depend on the order
+    the transfers commit in)."""
+    from orleans_tpu_torch.transactions import (TransactionalGrain,
+                                                TransactionalState,
+                                                transactional)
+
+    class AccountGrain(TransactionalGrain):
+        def __init__(self):
+            self.balance = TransactionalState("balance", default=N_BALANCE)
+
+        @transactional
+        async def add(self, amount):
+            v = await self.balance.get()
+            await self.balance.set(v + amount)
+
+        async def get_balance(self):
+            return await self.balance.get()
+
+    class BankGrain(TransactionalGrain):
+        @transactional
+        async def transfer(self, src, dst, amount):
+            await self.get_grain(AccountGrain, src).add(-amount)
+            await self.get_grain(AccountGrain, dst).add(amount)
+
+    return AccountGrain, BankGrain
+
+
+def drive_reminders(dev, n, seed: int = 17) -> tuple:
+    """N2: reminder-driven summaries, journaled, and transfers. A Presence
+    silo (``samples/presence_torch.py``, ``n`` players x 8 shards on
+    ``dev``) with reminders on a ``SqliteReminderTable`` file,
+    ``add_transactions`` over a ``SqliteTransactionLog`` file and the
+    journals on a ``MemoryStorage``. One heartbeat wave sets every
+    player's score; ``N_GAMES`` GameJournalGrains each register a
+    ``N_PERIOD`` s reminder; each fire reads ``GameGrain.summary`` (one
+    K1 fan-in under ``tick_fence``) and confirms it as a journal event.
+    ``N_TRANSFERS`` transactional transfers among ``N_ACCOUNTS`` accounts
+    run while the reminders fire. Once every reminder has fired
+    ``N_FIRES`` times the timers stop between two fires; each journal's
+    version must equal its counted fires, every event the numpy model's
+    summary, K1's launches (on the card) the fires, and the balances the
+    model's, their sum conserved. Then a new silo on the same reminder,
+    log and journal files: the same wave, and every reminder fires again
+    with no new registration; the same checks over both silos, and the
+    balances read back. Returns (results, stats)."""
+    pt = presence_sample()
+    from orleans_tpu_torch.ops import SEGMENT_SUM
+    from orleans_tpu_torch.parallel import make_mesh
+    from orleans_tpu_torch.reminders import SqliteReminderTable, add_reminders
+    from orleans_tpu_torch.runtime import ClusterClient
+    from orleans_tpu_torch.storage import MemoryStorage
+    from orleans_tpu_torch.transactions import (SqliteTransactionLog,
+                                                add_transactions)
+    Account, Bank = transfer_classes()
+    Journal, Player = pt.GameJournalGrain, pt.PlayerVectorGrain
+    games = pt.N_GAMES
+    rng = np.random.default_rng(seed)
+    delta = rng.integers(1, 100, n).astype(np.int32)
+    pos = rng.random((n, 2)).astype(np.float16)
+    g = np.arange(n) % games
+    want = np.stack([np.bincount(g, delta.astype(np.int64), games),
+                     np.bincount(g, minlength=games)], axis=1)
+    src = rng.integers(0, N_ACCOUNTS, N_TRANSFERS)
+    dst = (src + rng.integers(1, N_ACCOUNTS, N_TRANSFERS)) % N_ACCOUNTS
+    amount = rng.integers(1, 50, N_TRANSFERS)
+    balances = np.full(N_ACCOUNTS, N_BALANCE, np.int64)
+    np.subtract.at(balances, src, amount)
+    np.add.at(balances, dst, amount)
+    tmp = build_tmpdir("phase_n_reminders_")
+    journals = MemoryStorage()
+    mesh = make_mesh(SHARDS_B, dev)
+    fires = np.zeros(games, np.int64)
+    st: dict = {"errors": 0}
+    clock = time.perf_counter
+
+    def build():
+        def setup(b):
+            b.add_grains(Journal, Account, Bank)
+            b.with_storage("Default", journals)
+            add_transactions(b, log_provider=SqliteTransactionLog(
+                os.path.join(tmp, "txn.db")))
+        silo = pt.build_silo(n, mesh, setup=setup)
+        add_reminders(silo, SqliteReminderTable(
+            os.path.join(tmp, "reminders.db")), refresh_period=1.0)
+        return silo
+
+    def count_fires(silo) -> list:
+        """Count each reminder's completed fires; returns the in-flight
+        count (a one-element list)."""
+        svc = silo.reminders
+        deliver = svc.deliver_tick
+        flight = [0]
+
+        async def counted(entry, status):
+            flight[0] += 1
+            try:
+                await deliver(entry, status)
+                fires[int(entry.grain_id.key)] += 1
+            except Exception:
+                st["errors"] += 1
+                raise
+            finally:
+                flight[0] -= 1
+        svc.deliver_tick = counted
+        return flight
+
+    async def fire_until(silo, flight, at_least, label, timeout=60.0):
+        """Wait until every reminder has ``at_least`` fires, then stop the
+        timers at a moment no fire is in flight (no await between the
+        check and the stop)."""
+        deadline = clock() + timeout
+        while fires.min() < at_least:
+            assert clock() < deadline, f"{label}: fires {fires.tolist()}"
+            await asyncio.sleep(0.005)
+        while flight[0]:
+            assert clock() < deadline, f"{label}: a fire never ended"
+            await asyncio.sleep(0.001)
+        silo.reminders.stop()
+
+    async def check(client, k1_0, label) -> np.ndarray:
+        got = await asyncio.gather(*(client.get_grain(Journal, k).journal()
+                                     for k in range(games)))
+        versions = np.array([v for v, _ in got], np.int64)
+        assert np.array_equal(versions, fires), \
+            f"{label}: journal versions {versions.tolist()} != fires " \
+            f"{fires.tolist()}"
+        for k, (_, events) in enumerate(got):
+            ev = np.asarray(events, np.int64).reshape(-1, 2)
+            assert ev.shape[0] == fires[k] and (ev == want[k]).all(), \
+                f"{label}: game {k}'s summaries off the model"
+        if dev.type == "cuda":
+            k1 = SEGMENT_SUM.launches - k1_0
+            assert k1 == fires.sum(), \
+                f"{label}: K1 launched {k1} times for {fires.sum()} fires"
+        bal = np.asarray(await asyncio.gather(*(
+            client.get_grain(Account, a).get_balance()
+            for a in range(N_ACCOUNTS))), np.int64)
+        assert np.array_equal(bal, balances), f"{label}: balances"
+        assert bal.sum() == N_ACCOUNTS * N_BALANCE, f"{label}: money made"
+        return bal
+
+    async def wave(silo):
+        rt = silo.vector
+        keys = np.arange(n)
+        t0 = clock()
+        out = rt.call_batch(Player, "heartbeat", keys,
+                            {"pos": pos, "delta": delta},
+                            plan=rt.make_dense_plan(Player, keys))
+        assert np.array_equal(np.asarray(out, np.int64), delta), "wave"
+        return clock() - t0
+
+    async def run():
+        k1_0 = SEGMENT_SUM.launches
+        t0 = clock()
+        silo = build()
+        await silo.start()
+        st["start_s"] = clock() - t0
+        client = await ClusterClient(silo.fabric).connect()
+        try:
+            flight = count_fires(silo)
+            st["wave_s"] = await wave(silo)
+            t0 = clock()
+            await asyncio.gather(*(client.get_grain(Journal, k)
+                                   .start_summaries(N_PERIOD)
+                                   for k in range(games)))
+            st["register_s"] = clock() - t0
+            t_fire = clock()
+            bank = client.get_grain(Bank, 0)
+            t0 = clock()
+            for lo in range(0, N_TRANSFERS, 16):
+                await asyncio.gather(*(
+                    bank.transfer(int(src[i]), int(dst[i]), int(amount[i]))
+                    for i in range(lo, min(lo + 16, N_TRANSFERS))))
+            st["transfers_s"] = clock() - t0
+            await fire_until(silo, flight, N_FIRES, "Phase N2")
+            st["fire_s"] = clock() - t_fire
+            st["fires_1"] = int(fires.sum())
+            t0 = clock()
+            bal = await check(client, k1_0, "Phase N2")
+            st["check_s"] = clock() - t0
+        finally:
+            await client.close_async()
+            t0 = clock()
+            await silo.stop()
+            st["stop_s"] = clock() - t0
+        # the restart: the same files, no new registration
+        before = fires.copy()
+        t0 = clock()
+        silo = build()
+        await silo.start()
+        st["restart_s"] = clock() - t0
+        client = await ClusterClient(silo.fabric).connect()
+        try:
+            flight = count_fires(silo)
+            await wave(silo)
+            t0 = clock()
+            await fire_until(silo, flight, before.max() + 1,
+                             "Phase N2 after the restart")
+            st["refire_s"] = clock() - t0
+            assert (fires > before).all(), "Phase N2: a reminder lost"
+            bal2 = await check(client, k1_0, "Phase N2 after the restart")
+        finally:
+            await client.close_async()
+            await silo.stop()
+        assert np.array_equal(bal, bal2)
+        return {"summaries": want.copy(), "balances": bal2}
+
+    try:
+        res = asyncio.run(run())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert st["errors"] == 0, f"Phase N2: {st['errors']} failed fires"
+    st["fires"] = fires
+    return res, st
+
+
+def phase_n(dev, card) -> dict:
+    """N1 at full width over a SQLite file (K2 on every delivered chunk)
+    and N2 at full width (K1 once a fire); returns their launch counts.
+    Then N1 (SQLite and file) and N2 at N_N_CPU players on the card and on
+    the CPU, compared exactly."""
+    from orleans_tpu_torch.ops import KERNELS
+    t0 = time.perf_counter()
+    rows, st1 = drive_durable(dev, N_N)
+    wall1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res2, st2 = drive_reminders(dev, N_N)
+    wall2 = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    print(f"Phase N1: durable Presence heartbeats, {N_N} sensors x "
+          f"{SHARDS_B} shards over a SQLite queue file, device_fanout on; "
+          f"{wall1:.3f} s in all on {card}")
+    print(f"  items 1-2 produced and delivered with durable acks in "
+          f"{st1['first_s']:.3f} s ({2 * N_N / st1['first_s']:.0f} "
+          f"events/sec; produce {st1['produce_s']:.3f} s), silo stop "
+          f"{st1['stop_s']:.3f} s; items 3-4 produced offline in "
+          f"{st1['offline_produce_s']:.3f} s; the new silo resumed from "
+          f"the durable cursor and delivered {st1['resumed_delivered']} "
+          f"events in {st1['resume_s']:.3f} s (start included); every "
+          f"row holds exactly items 3 and 4; K2 {st1['k2']} launches "
+          f"({st1['k2'] / 4:g} a delivered item)")
+    fires = st2["fires"]
+    games = fires.size
+    print(f"Phase N2: reminder-driven summaries, journaled, {N_N} players, "
+          f"{games} reminders of {N_PERIOD} s; {wall2:.3f} s in all on "
+          f"{card}")
+    print(f"  silo start {st2['start_s']:.3f} s, wave {st2['wave_s']:.3f} "
+          f"s, {games} registrations {st2['register_s']:.3f} s; "
+          f"{N_TRANSFERS} transfers among {N_ACCOUNTS} accounts in "
+          f"{st2['transfers_s']:.3f} s "
+          f"({N_TRANSFERS / st2['transfers_s']:.0f} transactions/sec) while "
+          f"the reminders fired; {st2['fires_1']} fires in "
+          f"{st2['fire_s']:.3f} s; checks {st2['check_s']:.3f} s, stop "
+          f"{st2['stop_s']:.3f} s")
+    print(f"  restarted silo on the same files: start "
+          f"{st2['restart_s']:.3f} s, every reminder fired again in "
+          f"{st2['refire_s']:.3f} s with no new registration; fires per "
+          f"reminder {int(fires.min())}-{int(fires.max())}, "
+          f"{int(fires.sum())} in all == K1 launches == journal versions; "
+          f"every summary equals the model; balances conserved "
+          f"({int(res2['balances'].sum())})")
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    for kind in ("sqlite", "file"):
+        a, _ = drive_durable(dev, N_N_CPU, kind)
+        b, _ = drive_durable(cpu, N_N_CPU, kind)
+        same_results(a, b, f"Phase N1 {kind}, card vs CPU")
+    a, _ = drive_reminders(dev, N_N_CPU)
+    b, _ = drive_reminders(cpu, N_N_CPU)
+    same_results(a, b, "Phase N2, card vs CPU")
+    print(f"Phase N: N1 over SQLite and file queues and N2 at {N_N_CPU} "
+          f"players, card == CPU exactly (rows, summaries, balances); "
+          f"{time.perf_counter() - t0:.3f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -3090,12 +3530,23 @@ def main() -> int:
         assert count > 0, f"kernel {name} was not launched in Phase M"
     print(f"Phase M with its CPU comparison: "
           f"{time.perf_counter() - t_m:.3f} s")
+    # Phase N: durable streams (N1: each delivered chunk ranks through
+    # K2) and reminder-driven journaled summaries (N2: one K1 a fire)
+    for k in KERNELS:
+        k.launches = 0
+    t_n = time.perf_counter()
+    launches_n = phase_n(dev, card)
+    for name, count in launches_n.items():
+        assert count > 0, f"kernel {name} was not launched in Phase N"
+    print(f"Phase N with its CPU comparison: "
+          f"{time.perf_counter() - t_n:.3f} s")
     print(f"launches on the main path: A-C {launches}, E {launches_e}, "
           f"G {launches_g}, H {launches_h}, J {launches_j}, K {launches_k}, "
-          f"L {launches_l}, M {launches_m}")
+          f"L {launches_l}, M {launches_m}, N {launches_n}")
     launches = {name: launches[name] + launches_e[name] + launches_g[name]
                 + launches_h[name] + launches_j[name] + launches_k[name]
-                + launches_l[name] + launches_m[name] for name in launches}
+                + launches_l[name] + launches_m[name] + launches_n[name]
+                for name in launches}
 
     sources = {SEGMENT_SUM.name: ("orleans_tpu/ops/segment_reduce.py:87",
                                   "orleans_tpu_torch/ops/csrc/segment_sum.cu"),

@@ -17,6 +17,7 @@ This package imports torch and numpy only — never jax, never
 ``orleans_tpu``.
 """
 
-__all__ = ["config", "core", "directory", "dispatch", "interop",
-           "observability", "ops", "parallel", "placement", "runtime",
-           "storage", "streams", "versions"]
+__all__ = ["config", "core", "directory", "dispatch", "eventsourcing",
+           "interop", "multicluster", "observability", "ops", "parallel",
+           "placement", "reminders", "runtime", "services", "storage",
+           "streams", "transactions", "versions"]

@@ -27,8 +27,7 @@ statistics surface (``src/Orleans.Core/Statistics/``, LogStatistics +
 SiloRuntimeStatistics) to drive load shedding and tuning; here it is the
 measurement substrate the ingest-wall work lands against.
 
-The port's copy of ``orleans_tpu.observability.metrics``, without the
-journaled-events gauge (no eventsourcing package in the port yet).
+The port's copy of ``orleans_tpu.observability.metrics``.
 """
 
 from __future__ import annotations
@@ -147,12 +146,17 @@ class MetricsSampler:
                         lambda: len(_rc_mod._CB_POOL))
         self.add_source("turns.in_flight",
                         lambda: len(silo.dispatcher._turn_tasks))
-        # storage queue depth: the write-path backpressure signal —
-        # operations awaiting a storage provider. (The JAX package also
-        # samples unconfirmed journaled events when a journaled class is
-        # registered; the port has no eventsourcing package yet.)
+        # storage/journal queue depths: the write-path backpressure
+        # signals — operations awaiting a storage provider, and
+        # unconfirmed journaled events buffered grain-side
         self.add_source("storage.inflight_ops",
                         lambda: silo.storage_manager.inflight)
+        if self._has_journaled_grains():
+            # the unconfirmed-events walk is O(activations) per sample
+            # tick — only worth installing when a journaled class is
+            # actually registered
+            self.add_source("journal.unconfirmed_events",
+                            self._journal_unconfirmed)
         if silo.tracer is not None:
             self.add_source("trace.pending_traces",
                             lambda: len(silo.tracer.pending))
@@ -247,6 +251,26 @@ class MetricsSampler:
                         lambda: _sum("stream_cursor_lag"))
         self.add_source("streams.delivery_group",
                         lambda: _sum("stream_delivery_group"))
+
+    def _has_journaled_grains(self) -> bool:
+        from ..eventsourcing.journaled import JournaledGrain
+        return any(isinstance(c, type) and issubclass(c, JournaledGrain)
+                   for c in self.silo.registry.all_classes())
+
+    def _journal_unconfirmed(self) -> float:
+        """Unconfirmed (tentative) journaled events across every local
+        activation — >0 sustained means confirm_events is outrunning the
+        journal provider. Scoped to real JournaledGrain instances: an
+        application grain's private ``_pending`` attribute must not
+        inflate the gauge."""
+        from ..eventsourcing.journaled import JournaledGrain
+        total = 0
+        for act in self.silo.catalog.by_activation.values():
+            inst = act.grain_instance
+            if isinstance(inst, JournaledGrain):
+                # default for an instance still mid-activation
+                total += len(getattr(inst, "_pending", ()))
+        return float(total)
 
     def _queue_depth(self, cat) -> float:
         q = self.silo.message_center.inbound.get(cat)

@@ -124,7 +124,9 @@ further.
 The port's copy of ``orleans_tpu.runtime.multiloop``, on the port's own
 ``hotwire`` build (``sock_recv_batch``, ``sock_writev``; the Python
 fallback under ``ORLEANS_TPU_NATIVE=0``), with the multi-loop acceptor's
-stop repaired (see ``SocketFabric._serve``).
+stop repaired (see ``SocketFabric._serve``) and the same repair in
+:meth:`ShardWriter._do_close`: a writer closed with a send parked closes
+its socket in the send task's ``finally``.
 """
 
 from __future__ import annotations
@@ -354,20 +356,28 @@ class ShardWriter:
         try:
             self._loop.call_soon_threadsafe(self._do_close)
         except RuntimeError:
-            self._do_close()  # main loop gone (process teardown)
+            # main loop gone (process teardown): no task will run again
+            self._do_close()
+            self._close_sock()
 
     def is_closing(self) -> bool:
         return self._closed
 
     def _do_close(self) -> None:
-        # cancel a send parked in sock_sendall FIRST: closing the fd
-        # silently removes it from the selector, so the writability
-        # event that future waits on would never fire and the task (plus
-        # its buffered responses) would leak for the silo's lifetime
+        # cancel a send parked in sock_sendall, and let its task close
+        # the socket (``_send_loop``'s finally): the loop removes the
+        # parked send's writer in a callback the cancellation schedules,
+        # and a socket closed before it ran freed its fd number for a new
+        # socket, whose own writer then met the stale registration and
+        # was never watched (its send parked for good)
+        self._chunks.clear()
         t = self._task
         if t is not None and not t.done():
             t.cancel()
-        self._chunks.clear()
+            return
+        self._close_sock()
+
+    def _close_sock(self) -> None:
         try:
             self._sock.close()
         except OSError:
@@ -399,6 +409,8 @@ class ShardWriter:
                 hook()
         finally:
             self._sending = False
+            if self._closed:
+                self._close_sock()
 
 
 class IngressShard(threading.Thread):

@@ -11,10 +11,7 @@ The in-proc fabric (runtime.cluster.InProcFabric) replaces sockets for
 single-host clusters and tests; the data plane for vectorized grains rides
 device collectives (parallel.transport) instead of either.
 
-The port's copy of ``orleans_tpu.runtime.silo``. A replicated journaled
-grain class, whose module the port does not hold yet, is refused when the
-silo is built (:func:`refuse_unported`, ``NotImplementedError`` naming the
-module and its ROADMAP item).
+The port's copy of ``orleans_tpu.runtime.silo``.
 """
 
 from __future__ import annotations
@@ -51,17 +48,6 @@ if TYPE_CHECKING:
 log = logging.getLogger("orleans.silo")
 
 __all__ = ["SiloConfig", "Silo", "SiloBuilder", "ServiceLifecycleStage"]
-
-
-def refuse_unported(registry: "GrainRegistry") -> None:
-    """Raise NotImplementedError for a grain class that needs a module the
-    port does not hold yet."""
-    for cls in registry.all_classes():
-        if getattr(cls, "__journal_replicated__", False):
-            raise NotImplementedError(
-                f"{cls.__name__} is a replicated journaled grain, which "
-                f"needs eventsourcing/journaled.py; orleans_tpu_torch does "
-                f"not port it yet (ROADMAP Queue 1 item 18)")
 
 
 # eager_task_factory is a per-loop setting shared by every silo on the
@@ -843,7 +829,6 @@ class Silo:
 
     def __init__(self, config: SiloConfig, fabric: "InProcFabric",
                  registry: GrainRegistry, storage: StorageManager):
-        refuse_unported(registry)
         self.config = config
         self.fabric = fabric
         self.registry = registry

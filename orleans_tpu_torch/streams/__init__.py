@@ -3,8 +3,7 @@ src/Orleans.Runtime/Streams/): SMS direct fan-out + persistent queue-backed
 providers over grain-call delivery, and the device-tier provider whose
 consumers are vector-grain rows.
 
-The port of ``orleans_tpu.streams`` without ``durable`` (the file and
-SQLite queue adapters).
+The port of ``orleans_tpu.streams``.
 """
 
 from .balancer import (  # noqa: F401
@@ -15,6 +14,11 @@ from .balancer import (  # noqa: F401
     QueueBalancer,
 )
 from .cache import PooledQueueCache, QueueCacheCursor  # noqa: F401
+from .durable import (  # noqa: F401
+    DurableQueueAdapter,
+    FileQueueAdapter,
+    SqliteQueueAdapter,
+)
 from .core import (StreamId, StreamProvider, StreamRef, StreamSignal,  # noqa: F401
                    SubscriptionHandle, batch_consumer)
 from .device import (  # noqa: F401
@@ -40,6 +44,7 @@ __all__ = [
     "SMSStreamProvider", "add_sms_streams",
     "QueueAdapter", "QueueReceiver", "QueueBatch", "MemoryQueueAdapter",
     "GeneratorQueueAdapter",
+    "DurableQueueAdapter", "FileQueueAdapter", "SqliteQueueAdapter",
     "PersistentStreamProvider", "add_persistent_streams",
     "PubSubRendezvousGrain", "implicit_stream_subscription",
     "QueueBalancer", "DeploymentBasedBalancer", "BestFitBalancer",

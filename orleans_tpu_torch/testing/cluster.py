@@ -75,11 +75,19 @@ class TestClusterBuilder:
         return self
 
     def with_reminders(self, table=None) -> "TestClusterBuilder":
-        """Reminders need ``reminders/``, which the port does not hold
-        yet: refused (ROADMAP Queue 1 item 18)."""
-        raise NotImplementedError(
-            "with_reminders needs reminders/, which orleans_tpu_torch does "
-            "not port yet (ROADMAP Queue 1 item 18)")
+        from ..reminders import InMemoryReminderTable, add_reminders
+        table = table or InMemoryReminderTable()
+
+        def cfg(b: SiloBuilder):
+            b.configure(lambda silo: add_reminders_post(silo))
+
+        # add_reminders must run pre-start but needs the silo object;
+        # register through a builder configurator
+        def add_reminders_post(silo):
+            add_reminders(silo, table, refresh_period=0.2)
+
+        self._silo_configurators.append(cfg)
+        return self
 
     def with_sms_streams(self, name: str = "sms", **kw) -> "TestClusterBuilder":
         from ..streams import add_sms_streams
@@ -99,11 +107,15 @@ class TestClusterBuilder:
 
     def with_transactions(self, log_provider=None,
                           shards: int | None = None) -> "TestClusterBuilder":
-        """Transactions need ``transactions/``, which the port does not
-        hold yet: refused (ROADMAP Queue 1 item 18)."""
-        raise NotImplementedError(
-            "with_transactions needs transactions/, which orleans_tpu_torch "
-            "does not port yet (ROADMAP Queue 1 item 18)")
+        from ..transactions import add_transactions
+        kw = {}
+        if log_provider is not None:
+            kw["log_provider"] = log_provider
+        if shards is not None:
+            kw["shards"] = shards
+        self._silo_configurators.append(
+            lambda b: add_transactions(b, **kw))
+        return self
 
     def with_metrics(self, sample_period: float = 0.1,
                      window: float = 60.0, *,

@@ -17,6 +17,10 @@ in an in-proc silo on PyTorch:
   into ticks with everyone else's.
 * Write-behind persistence keeps per-player state durable
   (``MemoryStorage`` here; any GrainStorage provider works).
+* GameJournalGrain keeps a game's summaries as an event journal: a
+  durable reminder fires it, it reads the game's ``summary`` and records
+  it as a confirmed event (reminders and event sourcing on the host tier
+  over the same device table).
 
 Run: ``python samples/presence_torch.py`` on a CUDA card, or
 ``python samples/presence_torch.py --cpu`` to run the plain versions on
@@ -40,6 +44,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from orleans_tpu_torch.eventsourcing import JournaledGrain  # noqa: E402
 from orleans_tpu_torch.dispatch import (  # noqa: E402
     VectorGrain,
     actor_method,
@@ -133,17 +138,44 @@ class GameGrain(Grain):
                 "players": int(totals[1])}
 
 
+class GameJournalGrain(JournaledGrain):
+    """A game's summaries as a journal (log storage on the ``Default``
+    provider): each tick of its ``summary`` reminder reads the game's
+    :meth:`GameGrain.summary` (one fan-in on the device table) and
+    records ``(total_score, players)`` as one confirmed event."""
+
+    def initial_state(self):
+        return []
+
+    def apply_event(self, state, event):
+        return state + [event]
+
+    async def start_summaries(self, period: float) -> None:
+        await self.register_reminder("summary", period, period)
+
+    async def receive_reminder(self, name, status) -> None:
+        s = await self.get_grain(GameGrain, self.primary_key).summary()
+        self.raise_event((s["total_score"], s["players"]))
+        await self.confirm_events()
+
+    async def journal(self) -> tuple[int, list]:
+        return self.version, list(self.state)
+
+
 def build_silo(n_players: int, mesh, storage=None, flush_period=0.5,
-               checkpoint_dir=None, membership=None, **config):
+               checkpoint_dir=None, membership=None, setup=None, **config):
     """A silo hosting ``n_players`` dense PlayerVectorGrains on ``mesh``
     beside the GameGrain host grain. With a ``membership`` table the silo
     is built on a new ``SocketFabric`` (its own TCP listener and gateway)
-    and joined to the table."""
+    and joined to the table. ``setup(builder)``, when given, adds to the
+    builder before the silo is built (more grains, storage, services)."""
     b = SiloBuilder().with_name("presence-torch").add_grains(GameGrain)
     if membership is not None:
         b.with_fabric(SocketFabric())
     if config:
         b.with_config(**config)
+    if setup is not None:
+        setup(b)
     add_vector_grains(b, PlayerVectorGrain,
                       dense={PlayerVectorGrain: n_players}, mesh=mesh,
                       capacity_per_shard=-(-n_players // mesh.n_shards),

@@ -18,6 +18,7 @@ Every silo binds 127.0.0.1:0, and every async body runs under
 
 import asyncio
 import functools
+import os
 import socket
 
 import pytest
@@ -649,3 +650,74 @@ async def test_silo_after_a_stopped_multiloop_silo_answers():
             assert await _echo_within(silo) == want
         finally:
             await silo.stop()
+
+
+def _fill_fd_holes_below(fd: int) -> list:
+    """Take every free descriptor number below ``fd`` (which is open), so
+    the next new descriptor after ``fd`` is closed gets ``fd``'s number."""
+    held = []
+    while True:
+        n = os.dup(0)
+        if n > fd:
+            os.close(n)
+            return held
+        held.append(n)
+
+
+def test_shard_writer_closed_mid_send_frees_its_fd_number_cleanly():
+    """A client route's writer closed while its send is parked in
+    ``sock_sendall`` (a peer that does not read, a small send buffer):
+    the loop removes the parked send's writer registration in a callback
+    the cancellation schedules, so the writer's socket must stay open
+    until that removal has run. Closed in the same step, a new socket
+    that takes the freed descriptor number in that window meets the stale
+    registration, its own writability is never watched, and its send
+    parks for good (its client hears no answer). The loop runs the eager
+    task factory, as a silo's does, so a write starts its send at once."""
+    async def run():
+        loop = asyncio.get_running_loop()
+        loop.set_task_factory(asyncio.eager_task_factory)
+        big = b"x" * (1 << 21)
+        a1, b1 = socket.socketpair()
+        a2, b2 = socket.socketpair()
+        held: list = []
+        try:
+            for s in (a1, a2):
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 4096)
+            w1 = ml.ShardWriter(loop, a1)
+            w1.write(big)
+            await asyncio.sleep(0.05)  # parked: b1 never reads
+            assert w1._task is not None and not w1._task.done()
+            held = _fill_fd_holes_below(w1._sock.fileno())
+            swapped = loop.create_future()
+
+            def swap():
+                # the route's teardown and a new client's first answer
+                # in one loop iteration
+                w1.close()
+                loop.call_soon(start_second)
+
+            def start_second():
+                w2 = ml.ShardWriter(loop, a2)
+                w2.write(big)
+                swapped.set_result(w2)
+
+            loop.call_soon(swap)
+            w2 = await swapped
+            b2.setblocking(False)
+            got = 0
+            while got < len(big):
+                data = await asyncio.wait_for(
+                    loop.sock_recv(b2, 1 << 16), 5.0)
+                assert data, "the second route's socket closed early"
+                got += len(data)
+            w2.close()
+            await asyncio.sleep(0.01)
+            return got, w1.is_closing()
+        finally:
+            for n in held:
+                os.close(n)
+            for s in (a1, b1, a2, b2):
+                s.close()
+
+    assert asyncio.run(asyncio.wait_for(run(), TIMEOUT)) == (1 << 21, True)

@@ -404,7 +404,11 @@ def test_port_imports_no_jax():
         "'storage.checkpoint', 'directory.locator', "
         "'observability.ledger', 'observability.metrics', "
         "'observability.slo', 'observability.export', "
-        "'runtime.multiloop', 'runtime.multiproc'):\n"
+        "'runtime.multiloop', 'runtime.multiproc', 'streams.durable', "
+        "'services.grain_service', 'reminders.table', 'reminders.service', "
+        "'transactions.context', 'transactions.log', 'transactions.state', "
+        "'transactions.manager', 'eventsourcing.journaled', "
+        "'multicluster.gossip', 'multicluster.gsi'):\n"
         "    assert 'orleans_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('orleans_tpu_torch')]))\n")

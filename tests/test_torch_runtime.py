@@ -18,10 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+import orleans_tpu.core.ids as jids
 import orleans_tpu.core.serialization as jser
+import orleans_tpu.eventsourcing.journaled as jjournal
 import orleans_tpu.runtime as jr
 import orleans_tpu.storage as js
+import orleans_tpu_torch.core.ids as tids
 import orleans_tpu_torch.core.serialization as tser
+import orleans_tpu_torch.eventsourcing.journaled as tjournal
 import orleans_tpu_torch.dispatch as td
 import orleans_tpu_torch.observability.profiling as tprof
 import orleans_tpu_torch.runtime as tr
@@ -135,6 +139,29 @@ class _Replicated(tr.Grain):
     __journal_replicated__ = True
 
 
+class _JReplicated(jr.Grain):
+    __journal_replicated__ = True
+
+
+_JReplicated.__name__ = _JReplicated.__qualname__ = "_Replicated"
+
+
+async def _journal_hook(rt, ids, journaled, cls):
+    """Start a silo hosting a replicated journaled grain; return its
+    registered class names and the class of its journal notification
+    target."""
+    silo = rt.SiloBuilder().add_grains(cls).build()
+    await silo.start()
+    try:
+        gid = ids.GrainId.system_target(
+            ids.type_code_of(journaled.JOURNAL_NOTIFY_TARGET),
+            silo.silo_address)
+        return (sorted(c.__name__ for c in silo.registry.all_classes()),
+                type(silo.catalog.by_grain[gid][0].grain_instance).__name__)
+    finally:
+        await silo.stop()
+
+
 @pytest.mark.parametrize("option, value, module", [
     ("worker_procs", 2, "runtime/multiproc.py"),
     ("ingress_loops", 2, "runtime/multiloop.py"),
@@ -149,17 +176,26 @@ class _Replicated(tr.Grain):
     ("with_options", True, "config.py"),
 ])
 def test_unported_option_raises_at_build(option, value, module):
-    """Only a replicated journaled grain is still refused at ``build()``
-    (ROADMAP Queue 1 item 18). Every option of items 16-17 builds a silo
-    that starts and answers, with ``with_config`` and through an options
-    group — but ``worker_procs``, which on the in-process fabric meets the
-    JAX package's own ``ConfigurationError`` (SO_REUSEPORT needs a
-    ``SocketFabric``; tests/test_torch_socket.py starts it on one)."""
+    """Nothing is refused at ``build()`` any more (the name is kept from
+    when the port refused what it did not hold yet). Every option of items
+    16-17 builds a silo that starts and answers, with ``with_config`` and
+    through an options group — but ``worker_procs``, which on the
+    in-process fabric meets the JAX package's own ``ConfigurationError``
+    (SO_REUSEPORT needs a ``SocketFabric``; tests/test_torch_socket.py
+    starts it on one). A replicated journaled grain builds as in the JAX
+    package: the silo installs the journal notification target and
+    registers ``JournalRelayGrain`` when it starts."""
     b = tr.SiloBuilder().add_grains(THello)
     if option == "journal_replicated":
-        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-            b.add_grains(_Replicated).build()
-        assert module in str(e.value)
+        got = []
+        for case in ((jr, jids, jjournal, _JReplicated),
+                     (tr, tids, tjournal, _Replicated)):
+            got.append(asyncio.run(asyncio.wait_for(
+                _journal_hook(*case), TIMEOUT)))
+        assert got[0] == got[1]
+        assert "JournalRelayGrain" in got[1][0]
+        assert got[1][1] == "JournalNotificationTarget"
+        assert module == "eventsourcing/journaled.py"
         return
     if option == "with_options":
         from orleans_tpu_torch.config import MetricsOptions

@@ -1304,10 +1304,8 @@ async def test_replay_progress_dropped_on_unsubscribe():
 
 
 def test_persistent_module_exports_match():
-    """The port's stream package exports the reference's names, less the
-    durable adapters (file and SQLite queues)."""
-    durable = {"DurableQueueAdapter", "FileQueueAdapter",
-               "SqliteQueueAdapter"}
-    assert set(tst.__all__) == set(jst.__all__) - durable
+    """The port's stream package exports the reference's names, the
+    durable adapters (file and SQLite queues) among them."""
+    assert set(tst.__all__) == set(jst.__all__)
     assert set(tpers.__all__) == set(jpers.__all__)
     assert set(tcache.__all__) == set(jcache.__all__)

@@ -6,14 +6,11 @@ tests/test_vector_hosting.py through the port's TestCluster.
 
 Scenarios run through each package one after the other, never
 interleaved on one loop, and what each observed must be equal exactly.
-Two exceptions, both on purpose:
-
-* the restart scenario runs through the port only, several times: the
-  reference's copy can recurse in ``stop_all()`` until the loop hangs
-  (ROADMAP Queue 3), which no ``asyncio.wait_for`` can bound;
-* the reminder and transaction opt-ins are refused by the port
-  (``NotImplementedError``, ROADMAP Queue 1 item 18), so that test checks
-  the refusal.
+One exception, on purpose: the restart scenario runs through the port
+only, several times: the reference's copy can recurse in ``stop_all()``
+until the loop hangs (ROADMAP Queue 3), which no ``asyncio.wait_for`` can
+bound. The reminder and transaction opt-in test keeps the name it had
+when the port refused both opt-ins.
 
 Vector grains of a pair share ``__name__`` (part of every hashed key's
 GrainId and of the ring owner's hash); the port's TestCluster gets
@@ -228,19 +225,62 @@ async def test_partition_heals():
     assert await _parity(_partition_heals) == 3
 
 
-def test_feature_optins_reminders_and_transactions_are_refused(tmp_path):
-    """Reminders and transactions are not ported (ROADMAP Queue 1 item
-    18): each opt-in raises, naming its item, instead of failing inside a
-    silo. The Perfetto export (refused until item 17 was ported) writes
-    a Chrome trace file, here of a cluster that recorded no span."""
+async def _feature_optins(pkg, tx):
+    ticks: list = []
+
+    class TickerGrain(pkg.rt.Grain):
+        async def arm(self):
+            await self.register_reminder("tick", 0.1, 0.2)
+
+        async def receive_reminder(self, name, status):
+            ticks.append(status.current_tick_time)
+
+    class Acct(tx.TransactionalGrain):
+        def __init__(self):
+            self.v = tx.TransactionalState("v", default=0)
+
+        @tx.transactional
+        async def add(self, d):
+            await self.v.set(await self.v.get() + d)
+
+        async def get(self):
+            return await self.v.get()
+
+    cluster = (pkg.testing.TestClusterBuilder(2)
+               .add_grains(TickerGrain, Acct)
+               .with_reminders()
+               .with_transactions()
+               .build())
+    async with cluster:
+        await cluster.grain(TickerGrain, 1).arm()
+        await cluster.grain(Acct, "a").add(5)
+        got = await cluster.grain(Acct, "a").get()
+        await cluster.wait_until(lambda: len(ticks) >= 2,
+                                 msg="reminder ticks")
+        return (got, ticks == sorted(ticks),
+                [s.reminders is not None and s.transactions is not None
+                 for s in cluster.alive_silos])
+
+
+async def test_feature_optins_reminders_and_transactions_are_refused(
+        tmp_path):
+    """The port's copy of the reference's
+    ``test_feature_optins_reminders_and_transactions``: a two-silo
+    cluster with reminders and transactions opted in, run through each
+    package one after the other (the name is kept from when the port
+    refused both opt-ins). Then the Perfetto export writes a Chrome trace
+    file, here of a cluster that recorded no span."""
     import json
-    b = tt.TestClusterBuilder(2)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        b.with_reminders()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        b.with_transactions()
-    assert b._silo_configurators == []
-    path = b.build().export_trace(str(tmp_path / "trace.json"))
+
+    import orleans_tpu.transactions as jtx
+    import orleans_tpu_torch.transactions as ttx
+    got = []
+    for pkg, tx in ((J, jtx), (T, ttx)):
+        got.append(await asyncio.wait_for(_feature_optins(pkg, tx),
+                                          TIMEOUT))
+    assert got[0] == got[1] == (5, True, [True, True])
+    path = tt.TestClusterBuilder(2).build().export_trace(
+        str(tmp_path / "trace.json"))
     assert json.load(open(path))["traceEvents"] == []
 
 
