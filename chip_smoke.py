@@ -110,14 +110,26 @@ the script exits non-zero without its result line):
    the same files whose reminders fire again with no new registration.
    Then N1 (SQLite and file queues) and N2 at 20,000 on the card and on
    the CPU, compared exactly.
+17. Phase O: the silo axis across ranks. An NCCL process group of one
+   rank on this card (a ``FileStore`` in a temporary directory) and a
+   mesh over it (``make_mesh(8, card, group=...)``); Phase B's super at
+   its full width through that mesh: every route goes through the
+   process-group exchange (K2 packs the outbox, one
+   ``all_to_all_single`` a tensor), the delivered and dropped counts
+   through ``all_reduce``; every message must arrive, and the games and
+   the player state must equal Phase B's exactly. Then the merged reads
+   of a replicated worker (``all_reduce`` SUM/MAX/MIN after the dim-0
+   fold) and an overflowing exchange of ``samples/ranks_torch.py``,
+   equal to the one-device port. One card holds one rank (NCCL refuses
+   two ranks on a card), so an exchange between cards is not verified.
 
 Phase H runs at 262,144 players (L1 runs its drive at full width). The
 launch counts are set to 0 just before Phase A and read just after Phase
-C, and again around Phases E, G, H, J, K, L, M and N: a kernel of a path
-that was not launched fails the run (A-C launch both kernels, G, J and K
-launch K2, H, L, M and N both; E's tick uses neither). The last two lines are
-the ``kernels`` JSON (launches summed over those runs, errors and times
-in ms) and ``{"ok": true, "device": ...}``.
+C, and again around Phases E, G, H, J, K, L, M, N and O: a kernel of a
+path that was not launched fails the run (A-C launch both kernels, G, J
+and K launch K2, H, L, M, N and O both; E's tick uses neither). The last
+two lines are the ``kernels`` JSON (launches summed over those runs,
+errors and times in ms) and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -708,16 +720,19 @@ def phase_a(dev, card):
     return rate
 
 
-def phase_b(dev, card, n_players=N_PLAYERS, supers=3, warm=1, quiet=False):
+def phase_b(dev, card, n_players=N_PLAYERS, supers=3, warm=1, quiet=False,
+            group=None, label="Phase B"):
     """bench.py --devices 8's super-round on ``dev``; returns the game
-    counts and the player state for a cross-device comparison."""
+    counts and the player state of this process's shards for a
+    comparison. ``group``: run it on a mesh over that process group
+    (Phase O), whose ranks each hold their share of the 8 shards."""
     from orleans_tpu_torch.dispatch import VectorRuntime
     from orleans_tpu_torch.ops import segment_sum
-    from orleans_tpu_torch.parallel import make_mesh
+    from orleans_tpu_torch.parallel import all_reduce, make_mesh
     Player, Game, _ = player_classes()
-    n = SHARDS_B
-    rt = VectorRuntime(make_mesh(n, dev),
-                       capacity_per_shard=-(-n_players // n))
+    mesh = make_mesh(SHARDS_B, dev, group=group)
+    n = mesh.n_local
+    rt = VectorRuntime(mesh, capacity_per_shard=-(-n_players // SHARDS_B))
     tbl = rt.table(Player)
     tbl.ensure_dense(n_players)
     keys = np.arange(n_players)
@@ -729,7 +744,7 @@ def phase_b(dev, card, n_players=N_PLAYERS, supers=3, warm=1, quiet=False):
     staged = [torch.from_numpy(np.stack([
         pos + np.float16(0.001 * (i * K + k)) for k in range(K)])).to(dev)
         for i in range(2)]
-    route_capacity = -(-5 * n_players // (4 * n * n))
+    route_capacity = -(-5 * n_players // (4 * SHARDS_B * SHARDS_B))
     gt = rt.table(Game)
     gt.ensure_dense(N_GAMES)
     gps = gt.dense_per_shard
@@ -768,24 +783,32 @@ def phase_b(dev, card, n_players=N_PLAYERS, supers=3, warm=1, quiet=False):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     total = warm + supers
-    d, x = int(delivered.sum()), int(dropped.sum())
+    d = int(all_reduce(mesh, delivered.sum()))
+    x = int(all_reduce(mesh, dropped.sum()))
     assert x == 0, f"exchange dropped {x} messages"
     assert d == total * n_players, (d, total * n_players)
-    games = gt.state["count"][:, :gps].reshape(-1)[:N_GAMES].cpu().numpy()
+    # this process's games and players: global shards shard0 .. + n
+    games = gt.state["count"][:, :gps].reshape(-1).cpu().numpy()
+    g0 = mesh.shard0 * gps
     want = np.bincount(keys % N_GAMES, minlength=N_GAMES) * total
-    np.testing.assert_array_equal(games, want)
+    n_g = max(0, min(games.size, N_GAMES - g0))
+    np.testing.assert_array_equal(games[:n_g], want[g0:g0 + n_g])
     beats = tbl.state["beats"][:, :tbl.dense_per_shard].reshape(-1)
-    assert bool((beats[:n_players] == 1 + total * K).all())
+    p0 = mesh.shard0 * tbl.dense_per_shard
+    n_p = max(0, min(beats.numel(), n_players - p0))
+    assert bool((beats[:n_p] == 1 + total * K).all())
     if not quiet:
-        report_breakdown("Phase B super", device_breakdown(
+        report_breakdown(f"{label} super", device_breakdown(
             lambda: super_round(0), iters=3), wall / supers * 1e3)
         rate = supers * K * n_players / wall
-        print(f"Phase B: {n_players} players over {n} shards on one card, "
-              f"{supers} supers (K={K} scan + route + fan-in + game tick): "
+        where = "on one card" if group is None else \
+            f"on rank {mesh.rank} of {mesh.world} ({n} shards a rank)"
+        print(f"{label}: {n_players} players over {SHARDS_B} shards {where},"
+              f" {supers} supers (K={K} scan + route + fan-in + game tick): "
               f"{rate:.0f} heartbeat msgs/sec, {supers * n_players / wall:.0f}"
               f" routed msgs/sec ({wall / supers * 1e3:.3f} ms/super), "
               f"delivered {d}, dropped {x} on {card}")
-    return games, {k: v.cpu() for k, v in tbl.state.items()}
+    return games[:n_g], {k: v.cpu() for k, v in tbl.state.items()}
 
 
 def phase_c(dev):
@@ -3411,6 +3434,64 @@ def phase_n(dev, card) -> dict:
     return launches
 
 
+def ranks_sample():
+    sys.path.insert(0, os.path.join(ROOT, "samples"))
+    import ranks_torch
+    return ranks_torch
+
+
+def phase_o(dev, card, b_games, b_state) -> dict:
+    """Phase B's super across the ranks of an NCCL process group of one
+    rank on this card (a FileStore in a temporary directory): the route
+    goes through the process-group exchange (one ``all_to_all_single`` a
+    tensor, K2 packing each rank's outbox), the delivered counts and the
+    merged reads through ``all_reduce``. Held exactly against Phase B's
+    one-device run (``b_games``, ``b_state``) and against the one-device
+    merged reads and exchange of ``samples/ranks_torch.py``. Two ranks on
+    one card are not tried (NCCL refuses a card shared by two ranks), so
+    an exchange between cards is not verified here. Returns the phase's
+    launches."""
+    import torch.distributed as dist
+    from orleans_tpu_torch.ops import KERNELS
+    from orleans_tpu_torch.parallel import make_mesh
+    rk = ranks_sample()
+    tmp = build_tmpdir("phase_o_")
+    t0 = time.perf_counter()
+    try:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            group = dist.group.WORLD
+            for k in KERNELS:
+                k.launches = 0
+            t_super = time.perf_counter()
+            games, state = phase_b(dev, card, group=group, label="Phase O")
+            launches = {k.name: k.launches for k in KERNELS}
+            wall = time.perf_counter() - t_super
+            np.testing.assert_array_equal(games, b_games)
+            for f, v in b_state.items():
+                c = v.shape[1] - 1  # the sink row is undefined
+                assert torch.equal(state[f][:, :c], v[:, :c]), f
+            one, grouped = make_mesh(rk.N_SHARDS, dev), \
+                make_mesh(rk.N_SHARDS, dev, group=group)
+            for run in (rk.run_hits, rk.run_exchange):
+                want, got = run(one), run(grouped)
+                assert sorted(want) == sorted(got)
+                for k, v in want.items():
+                    np.testing.assert_array_equal(got[k], v, err_msg=k)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"Phase O: Phase B's super through an NCCL group of 1 rank "
+          f"({wall:.3f} s with its set-up): games and player state == "
+          f"Phase B exactly; merged reads (all_reduce SUM/MAX/MIN) and the "
+          f"exchange == the one-device port; launches {launches}; "
+          f"{time.perf_counter() - t0:.3f} s on {card}; an exchange "
+          f"between cards is not verified (one card)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -3441,7 +3522,7 @@ def main() -> int:
         k.launches = 0  # the main path's count starts here
     rate_a = phase_a(dev, card)
     before_b = {k.name: k.launches for k in KERNELS}
-    phase_b(dev, card)
+    b_games, b_state = phase_b(dev, card)
     for k in KERNELS:  # Phase B's route and fan-in went through both
         assert k.launches > before_b[k.name], f"{k.name} not launched in B"
     phase_c(dev)
@@ -3540,13 +3621,19 @@ def main() -> int:
         assert count > 0, f"kernel {name} was not launched in Phase N"
     print(f"Phase N with its CPU comparison: "
           f"{time.perf_counter() - t_n:.3f} s")
+    # Phase O: Phase B across the ranks of a process group; every route
+    # packs its outbox through K2, every fan-in through K1
+    launches_o = phase_o(dev, card, b_games, b_state)
+    for name, count in launches_o.items():
+        assert count > 0, f"kernel {name} was not launched in Phase O"
+    del b_state
     print(f"launches on the main path: A-C {launches}, E {launches_e}, "
           f"G {launches_g}, H {launches_h}, J {launches_j}, K {launches_k}, "
-          f"L {launches_l}, M {launches_m}, N {launches_n}")
+          f"L {launches_l}, M {launches_m}, N {launches_n}, O {launches_o}")
     launches = {name: launches[name] + launches_e[name] + launches_g[name]
                 + launches_h[name] + launches_j[name] + launches_k[name]
                 + launches_l[name] + launches_m[name] + launches_n[name]
-                for name in launches}
+                + launches_o[name] for name in launches}
 
     sources = {SEGMENT_SUM.name: ("orleans_tpu/ops/segment_reduce.py:87",
                                   "orleans_tpu_torch/ops/csrc/segment_sum.cu"),

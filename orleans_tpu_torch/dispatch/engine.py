@@ -66,7 +66,8 @@ from ..observability.stats import INGEST_STATS as _INGEST
 from ..ops.hash_probe import device_lookup64
 from ..ops.route import rank_dense_keys
 from ..ops.segment_reduce import REDUCE_OPS, host_fold, masked_reduce
-from ..parallel.mesh import Mesh, make_mesh, refuse_in_worker
+from ..parallel.mesh import (Mesh, make_mesh, refuse_in_worker,
+                             refuse_on_group)
 from ..parallel.transport import build_exchange
 from .table import _LOC_STRIDE, ShardedActorTable
 from .vector_grain import ActorMethod, VectorGrain
@@ -215,14 +216,21 @@ class _DensePlan:
     """Cached batch layout for a recurring dense key set. The constant
     batch operands (slots, key hashes, valid mask, zero fresh mask) go to
     the device once and are reused every tick; nothing may write into
-    them (a kernel that did would corrupt every later tick of the plan)."""
+    them (a kernel that did would corrupt every later tick of the plan).
+
+    On a process-group mesh the plan holds this rank's keys only:
+    ``keys`` are the caller's keys whose shard is local, ``sel`` their
+    positions in the caller's order; :meth:`pack` and
+    :meth:`pack_device` take caller-order payloads and keep those
+    positions, and :meth:`unpack` returns the rows of ``keys``."""
 
     __slots__ = ("keys", "order", "inv", "sorted_shard", "lane_sorted", "B",
                  "slots_b", "valid_b", "khash_b", "_dev", "identity",
-                 "counts")
+                 "counts", "sel")
 
     def __init__(self, keys, order, inv, sorted_shard, lane_sorted, B,
-                 slots_b, valid_b, khash_b, identity=False, counts=None):
+                 slots_b, valid_b, khash_b, identity=False, counts=None,
+                 sel=None):
         self.keys = keys
         self.order = order
         self.inv = inv
@@ -237,9 +245,18 @@ class _DensePlan:
         # mapping) repack by contiguous slices instead of fancy indexing
         self.identity = identity
         self.counts = counts
+        self.sel = sel  # None: every caller key is in the plan
+
+    def select(self, x):
+        """The plan's rows of a caller-order [M, ...] array."""
+        return x if self.sel is None else x[self.sel]
 
     def pack(self, x: np.ndarray, dtype, shape) -> np.ndarray:
         """[M, ...] caller-order payload → [n_shards, B, ...] host batch."""
+        return self.pack_own(self.select(np.asarray(x)), dtype, shape)
+
+    def pack_own(self, x: np.ndarray, dtype, shape) -> np.ndarray:
+        """:meth:`pack` of an array already in the order of ``keys``."""
         n = self.valid_b.shape[0]
         dtype = numpy_dtype(dtype)
         buf = np.zeros((n, self.B, *shape), dtype=dtype)
@@ -257,6 +274,8 @@ class _DensePlan:
     def pack_device(self, x: torch.Tensor) -> torch.Tensor:
         """Identity plans: [K, M, ...] device payload → [K, n, B, ...]."""
         n = self.valid_b.shape[0]
+        if self.sel is not None:  # the rank's keys: one contiguous run
+            x = x[:, int(self.sel[0]):int(self.sel[0]) + self.sel.size]
         K = x.shape[0]
         if n * self.B == x.shape[1] or n == 1:
             pad = n * self.B - x.shape[1]
@@ -579,6 +598,7 @@ class VectorRuntime:
 
     def actor(self, grain_class: type, key: int | str) -> VectorActorRef:
         """Reference to one device-tier activation."""
+        refuse_on_group(self.mesh, "VectorRuntime.actor")
         gid = GrainId.for_grain(GrainType.of(grain_class.__name__), key)
         kh = self.key_hash_for(key, gid.uniform_hash)
         self.table(grain_class).note_route(kh, gid.uniform_hash)
@@ -605,6 +625,7 @@ class VectorRuntime:
     def call(self, grain_class: type, key_hash: int, method: str,
              **args) -> asyncio.Future:
         """Queue one invocation; the future resolves after its tick."""
+        refuse_on_group(self.mesh, "VectorRuntime.call")
         m = self.method_of(grain_class, method)
         if m.args_schema is not None:
             _validate_args(grain_class, method, m.args_schema, args)
@@ -628,6 +649,7 @@ class VectorRuntime:
         future with the error (or drops a one-way item); the rest proceed.
         ``traces``: per-item ``(trace_id, parent_span_id)`` or None;
         ``origin``: the originating worker process of every item."""
+        refuse_on_group(self.mesh, "VectorRuntime.call_group")
         m = self.method_of(grain_class, method)
         schema = m.args_schema
         skeys = schema.keys() if schema is not None else None
@@ -1152,14 +1174,29 @@ class VectorRuntime:
                 "call_batch keys must be unique within a tick; split "
                 "duplicate-key traffic across ticks")
         shard, slot = tbl.dense_shard_slot(keys)
+        sel, first = None, 0
+        if self.mesh.group is not None:
+            # this rank's keys only, its shards as rows 0..n_local-1
+            sel = np.flatnonzero((shard >= tbl.shard0)
+                                 & (shard < tbl.shard0 + tbl.n_shards))
+            keys, shard, slot = keys[sel], shard[sel] - tbl.shard0, \
+                slot[sel]
+            M = keys.shape[0]
+            # an identity plan starts at this rank's first dense key, and
+            # its keys are one run of the caller's order
+            first = tbl.shard0 * tbl.dense_per_shard
+            if M and not np.array_equal(
+                    sel, np.arange(sel[0], sel[0] + M)):
+                first = -1
         p = _pack_lanes(tbl, shard, slot, keys)
         inv = np.empty_like(p.order)
         inv[p.order] = np.arange(M)
-        identity = bool(M) and keys[0] == 0 and keys[-1] == M - 1 and \
-            np.array_equal(keys, np.arange(M))
+        identity = bool(M) and keys[0] == first and \
+            keys[-1] == first + M - 1 and \
+            np.array_equal(keys, np.arange(first, first + M))
         return _DensePlan(keys, p.order, inv, p.shard_sorted, p.lane, p.B,
                           p.slots_b, p.valid_b, p.khash_b,
-                          identity=identity, counts=p.counts)
+                          identity=identity, counts=p.counts, sel=sel)
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
@@ -1184,11 +1221,12 @@ class VectorRuntime:
             plan = self.make_dense_plan(grain_class, keys)
         M = plan.keys.shape[0]
         d_slots, d_khash, d_valid, _ = plan.device_operands(self.device)
-        if fresh is None:
-            fresh = tbl.dense_fresh_mask(plan.keys)
+        # in the order of plan.keys (the rank's keys on a group mesh)
+        fresh = tbl.dense_fresh_mask(plan.keys) if fresh is None \
+            else plan.select(np.asarray(fresh))
         d_fresh = None
         if fresh is not None:
-            d_fresh = self._upload(plan.pack(np.asarray(fresh), bool, ()))
+            d_fresh = self._upload(plan.pack_own(fresh, bool, ()))
             tbl.mark_dense_active(plan.keys)
         args_b = {f: self._upload(plan.pack(np.asarray(args[f]), dt, sh))
                   for f, (dt, sh) in m.args_schema.items()}
@@ -1245,7 +1283,7 @@ class VectorRuntime:
         d_slots, d_khash, d_valid, _ = plan.device_operands(self.device)
         d_fresh = None
         if fresh0 is not None:
-            d_fresh = self._upload(plan.pack(np.asarray(fresh0), bool, ()))
+            d_fresh = self._upload(plan.pack_own(fresh0, bool, ()))
             tbl.mark_dense_active(plan.keys)
         args_b = {}
         for fname, (dtype, shape) in m.args_schema.items():
@@ -1472,6 +1510,7 @@ class VectorRuntime:
         activation of ``grain_class``, or to a key subset, as bulk ticks.
         Keys with per-key turns in flight defer to later rounds. Returns
         the number of activations applied."""
+        refuse_on_group(self.mesh, "VectorRuntime.map_actors")
         m = self.method_of(grain_class, method)
         if m.args_schema is not None:
             # fail even when the live population is empty
@@ -1495,6 +1534,7 @@ class VectorRuntime:
         host. ``combine``: "sum" | "max" | "min" | "mean" (mean = sum /
         count, combined exactly across rounds). Returns numpy values, or
         None when no live actor matched."""
+        refuse_on_group(self.mesh, "VectorRuntime.reduce_actors")
         value, count = await self.reduce_actors_partial(
             grain_class, method, kwargs, keys, combine)
         if value is None or count == 0:
@@ -1509,6 +1549,7 @@ class VectorRuntime:
                                     combine: str = "sum"):
         """``(partial_value, count)`` of :meth:`reduce_actors`, where a
         mean partial carries the sum: the form a cross-silo merge folds."""
+        refuse_on_group(self.mesh, "VectorRuntime.reduce_actors_partial")
         op = "sum" if combine == "mean" else combine
         if op not in REDUCE_OPS:
             raise ValueError(
@@ -1589,6 +1630,7 @@ class VectorRuntime:
         :meth:`apply_received`, whose dedup gives duplicate targets the
         mailbox-defer semantics across ticks. Targets with per-key turns
         in flight defer to later rounds. Returns the edges delivered."""
+        refuse_on_group(self.mesh, "VectorRuntime.broadcast_actors")
         tbl = self.table(grain_class)
         targets = np.asarray(targets, dtype=np.int64).reshape(-1)
         if targets.size and (targets.min() < 0
@@ -1643,6 +1685,7 @@ class VectorRuntime:
         fan-out through :meth:`broadcast_actors`. Items stacked item-major
         keep per-key event order (first occurrence wins each dedup
         round). Returns edge-events delivered."""
+        refuse_on_group(self.mesh, "VectorRuntime.stream_fanout")
         targets = np.asarray(targets, dtype=np.int64).reshape(-1)
         d = await self.broadcast_actors(grain_class, method, targets, args,
                                         chunk=chunk)
@@ -1723,6 +1766,7 @@ class VectorRuntime:
         ready through ``method``, a read-only method returning 0/1 per
         actor. Each poll is one reduce_actors sum. Returns the ready
         count observed."""
+        refuse_on_group(self.mesh, "VectorRuntime.join_when")
         keys = np.asarray(keys, dtype=np.int64)
         need = int(keys.size if k is None else k)
         return await join_poll(
@@ -1749,6 +1793,8 @@ class VectorRuntime:
         unregistered keys are dropped and counted."""
         if "__key__" in payload:
             raise ValueError("payload field name '__key__' is reserved")
+        if sparse:
+            refuse_on_group(self.mesh, "VectorRuntime.route(sparse=True)")
         tbl = self.table(dest_class)
         key = ("exchange", tbl.n_shards, capacity)
         ex = self._kernel_cache.get(key)
@@ -1788,6 +1834,9 @@ class VectorRuntime:
 
         Returns (results [n_shards, L, ...], applied [n_shards, L])."""
         self.method_of(dest_class, method)  # validate the method exists
+        if sparse:
+            refuse_on_group(self.mesh,
+                            "VectorRuntime.apply_received(sparse=True)")
         slots, applied, khash = self._apply_resolver(
             dest_class, sparse)(recv_keys, recv_valid)
         fresh = torch.zeros_like(applied)
@@ -1983,11 +2032,23 @@ class VectorRuntime:
                 if not read_only:
                     for k, r in rows.items():
                         nr = as_field(k, new_rows[k], r)
+                        if scan_all_valid and _same_view(nr, r):
+                            # a field passed through unchanged, still a
+                            # view of the pool (one shard, contiguous
+                            # rows): writing it over itself is a no-op
+                            # that torch refuses as an overlapping copy
+                            continue
                         write(k, nr if scan_all_valid else sel(v, nr, r))
                 outs.append(shape_results(results, n, B, slots.device))
             return state, _stack_rounds(outs)
 
         return scanned
+
+
+def _same_view(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` are the same elements of the same storage."""
+    return a.data_ptr() == b.data_ptr() and a.shape == b.shape and \
+        a.stride() == b.stride() and a.dtype == b.dtype
 
 
 def _stack_rounds(outs: list):

@@ -23,6 +23,7 @@ the rows of keys the ring gives the silo's own worker processes.
 
 from __future__ import annotations
 
+from ..parallel.mesh import refuse_on_group
 from .engine import VectorRuntime
 from .vector_grain import VectorGrain
 
@@ -58,6 +59,8 @@ def add_vector_grains(builder, *grain_classes: type[VectorGrain],
     for cls in grain_classes:
         if not issubclass(cls, VectorGrain):
             raise TypeError(f"{cls.__name__} is not a VectorGrain")
+    if mesh is not None:
+        refuse_on_group(mesh, "add_vector_grains (hosting)")
 
     def install(silo) -> None:
         import asyncio

@@ -9,7 +9,9 @@ The port of ``orleans_tpu.dispatch.replicated``:
   aggregators);
 * reads merge the replicas with the class's ``MERGE`` spec. The JAX
   package's ``psum``/``pmax``/``pmin`` over the silo axis are ``sum``/
-  ``amax``/``amin`` over the leading shard dimension here.
+  ``amax``/``amin`` over the leading shard dimension here; on a mesh over
+  a process group each rank folds its own shards that way and one
+  ``all_reduce`` (``SUM``/``MAX``/``MIN``) a field folds the ranks.
 
 Classes opt in with :func:`replicated_worker` and declare how each field
 merges::
@@ -31,6 +33,7 @@ import torch
 from torch.func import vmap
 
 from ..interop import numpy_dtype, torch_dtype
+from ..parallel.mesh import all_reduce
 from .engine import _leaves, _tree_map, _validate_args
 from .vector_grain import VectorGrain, vector_methods
 
@@ -70,7 +73,11 @@ class ReplicatedWorkerHost:
 
     State: ``[n_shards, n_keys + 1, *field]`` on the mesh's device (row
     ``n_keys`` is the padding sink); every shard holds the full key
-    range."""
+    range. On a process-group mesh ``n_shards`` is this rank's shards
+    (global ``shard0 ..``): calls keep their global round-robin shard,
+    each rank runs the calls of its own shards, and the per-call results
+    are assembled on every rank by a sum over the ranks (each call's
+    result is nonzero on one rank only)."""
 
     def __init__(self, cls: type[VectorGrain], mesh, n_keys: int):
         if not getattr(cls, "__vector_replicated__", False):
@@ -79,7 +86,9 @@ class ReplicatedWorkerHost:
         self.cls = cls
         self.mesh = mesh
         self.device = mesh.device
-        self.n_shards = mesh.n_shards
+        self.n_shards = mesh.n_local  # rows held on this process
+        self.n_global = mesh.n_shards
+        self.shard0 = mesh.shard0
         self.n_keys = int(n_keys)
         self.methods = vector_methods(cls)
         self._rr = 0  # round-robin shard assignment
@@ -110,17 +119,23 @@ class ReplicatedWorkerHost:
         self._check_keys(keys)
         M = keys.shape[0]
         args = args or {}
-        n = self.n_shards
+        n = self.n_global
         if m.args_schema is None and args:
             m.infer_schema(args, lead=1)
         if m.args_schema is not None:
             _validate_args(self.cls, method, m.args_schema, args)
         shard = (np.arange(self._rr, self._rr + M) % n).astype(np.int64)
         self._rr = int((self._rr + M) % n)
+        # this process's calls, on its rows (all of them on one device)
+        shard = shard - self.shard0
+        mine = (shard >= 0) & (shard < self.n_shards)
+        grouped = self.mesh.group is not None
         shape_tree = None  # the result tree of the first tick
         out: list[np.ndarray] = []  # one [M, ...] array per result leaf
-        remaining = list(range(M))
-        while remaining:
+        remaining = [int(i) for i in np.flatnonzero(mine)]
+        # a rank whose shards got no call still runs one empty tick, so
+        # that it knows the result tree it enters the sum with
+        while remaining or (grouped and M and shape_tree is None):
             claimed: set = set()
             this_round: list = []
             deferred: list = []
@@ -145,6 +160,9 @@ class ReplicatedWorkerHost:
         self.calls += M
         if shape_tree is None:
             return np.zeros(0)
+        if grouped:
+            out = [all_reduce(self.mesh, torch.from_numpy(o).to(self.device),
+                              "sum").cpu().numpy() for o in out]
         it = iter(out)
         return _tree_map(lambda _: next(it), shape_tree)
 
@@ -156,7 +174,7 @@ class ReplicatedWorkerHost:
         sh = shard[idxs]
         ks = keys[idxs]
         counts = np.bincount(sh, minlength=n)
-        B = max(8, 1 << int(counts.max() - 1).bit_length())
+        B = max(8, 1 << int(max(1, counts.max()) - 1).bit_length())
         order = np.argsort(sh, kind="stable")
         starts = np.zeros(n + 1, dtype=np.int64)
         np.cumsum(counts, out=starts[1:])
@@ -181,7 +199,7 @@ class ReplicatedWorkerHost:
         results = self._tick_kernel(method, B)(
             self.state, self._upload(slots), self._upload(fresh),
             self._upload(valid), args_b)
-        return results, np.asarray(idxs)[order], ssh, lane
+        return results, np.asarray(idxs, dtype=np.int64)[order], ssh, lane
 
     def _check_keys(self, keys: np.ndarray) -> None:
         if keys.size and (keys.min() < 0 or keys.max() >= self.n_keys):
@@ -232,11 +250,15 @@ class ReplicatedWorkerHost:
     # ------------------------------------------------------------------
     def read_merged(self, keys: np.ndarray) -> dict[str, np.ndarray]:
         """Cluster-wide view of ``keys``: every shard's replica rows
-        folded with the class's MERGE spec over the shard dimension."""
+        folded with the class's MERGE spec over the shard dimension, then
+        over the ranks of a process-group mesh. Integer merges are exact;
+        a float "sum" adds in another order than the JAX package's
+        ``psum``."""
         keys = np.asarray(keys, dtype=np.int32)
         self._check_keys(keys)
         d_keys = self._upload(keys.astype(np.int64))
         merge = self.cls.MERGE
-        return {f: _MERGE_OPS[merge[f]](v[:, d_keys]).cpu().numpy().copy()
+        return {f: all_reduce(self.mesh, _MERGE_OPS[merge[f]](v[:, d_keys]),
+                              merge[f]).cpu().numpy().copy()
                 for f, v in self.state.items()}
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..parallel.mesh import refuse_on_group
+
 __all__ = ["reshard_dense"]
 
 
@@ -19,6 +21,8 @@ def reshard_dense(old_table, new_rt):
     shard counts) and return the new table. State rows carry over exactly,
     and so does the activation bitmap, so rehydrated rows are not
     re-initialized on their next touch. The old table is left as it was."""
+    refuse_on_group(old_table.mesh, "reshard_dense")
+    refuse_on_group(new_rt.mesh, "reshard_dense")
     cls = old_table.grain_class
     n_keys = old_table.dense_n
     if n_keys == 0 or old_table.dense_per_shard == 0:

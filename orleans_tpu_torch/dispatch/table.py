@@ -15,6 +15,12 @@ the shard comes from a host-side free list. Two key regimes:
   ``ensure_dense(n)`` pre-provisions key → (key // per_shard, key %
   per_shard), so a contiguous key range is an exact reshape onto the
   ``[n_shards, B]`` batch layout.
+
+On a mesh over a process group the table holds only this rank's
+``[n_local, capacity+1, *field]`` pools: ``n_shards`` is the rows held
+here, ``n_global`` the mesh's shards, and the dense mapping runs over
+``n_global`` (global shard ``shard0 + row``). Only the dense regime runs
+there; the hashed regime raises ``GroupMeshError``.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 
 from ..interop import state_from_numpy, torch_dtype
 from ..ops.hash_probe import DeviceDirectory64
-from ..parallel.mesh import Mesh
+from ..parallel.mesh import Mesh, refuse_on_group
 from .vector_grain import VectorGrain, vector_methods
 
 # directory-value encoding stride: loc = shard * _LOC_STRIDE + slot. Fixed
@@ -57,7 +63,10 @@ class ShardedActorTable:
         self.grain_class = grain_class
         self.mesh = mesh
         self.device = mesh.device
-        self.n_shards = mesh.n_shards
+        # rows held on this process; the dense mapping spans n_global
+        self.n_shards = mesh.n_local
+        self.n_global = mesh.n_shards
+        self.shard0 = mesh.shard0
         # power-of-two capacity: bounds distinct batch shapes and lets
         # padded buckets (also po2) slice the pool contiguously
         self.capacity = 1 << (int(capacity_per_shard) - 1).bit_length()
@@ -184,7 +193,7 @@ class ShardedActorTable:
             raise RuntimeError(
                 "dense mapping must be set up before hashed keys")
         if self.dense_per_shard:
-            if n <= self.dense_per_shard * self.n_shards:
+            if n <= self.dense_per_shard * self.n_global:
                 if n > self.dense_n:
                     self.dense_active = np.concatenate(
                         [self.dense_active, np.zeros(n - self.dense_n, bool)])
@@ -192,9 +201,9 @@ class ShardedActorTable:
                 return
             raise RuntimeError(
                 f"dense keyspace exhausted ({n} > "
-                f"{self.dense_per_shard * self.n_shards}); provision the "
+                f"{self.dense_per_shard * self.n_global}); provision the "
                 f"maximum population in the first ensure_dense call")
-        per_shard = -(-n // self.n_shards)  # ceil
+        per_shard = -(-n // self.n_global)  # ceil
         if per_shard > self.capacity:
             self.grow(per_shard)
         self.dense_n = n
@@ -221,13 +230,15 @@ class ShardedActorTable:
 
     def dense_shard_slot(self, keys: np.ndarray
                          ) -> tuple[np.ndarray, np.ndarray]:
-        """Vectorized key→(shard, slot) for dense keys (int array)."""
+        """Vectorized key→(global shard, slot) for dense keys (int
+        array); the row on this process is ``shard - shard0``."""
         per = max(self.dense_per_shard, 1)
         return keys // per, keys % per
 
     # -- hashed regime ----------------------------------------------------
     def lookup_or_allocate(self, key_hash: int) -> tuple[int, int, bool]:
         """Returns (shard, slot, fresh)."""
+        refuse_on_group(self.mesh, "the hashed key regime")
         loc = self.key_to_slot.get(key_hash)
         if loc is not None:
             return loc[0], loc[1], False
@@ -389,8 +400,13 @@ class ShardedActorTable:
         loc = self.key_to_slot.get(key_hash)
         if loc is None:
             if 0 <= key_hash < self.dense_n:
-                loc = (key_hash // self.dense_per_shard,
+                loc = (key_hash // self.dense_per_shard - self.shard0,
                        key_hash % self.dense_per_shard)
+                if not 0 <= loc[0] < self.n_shards:
+                    raise ValueError(
+                        f"dense key {key_hash} lives on global shard "
+                        f"{loc[0] + self.shard0}, not on rank "
+                        f"{self.mesh.rank}'s shards")
             else:
                 return None
         shard, slot = loc

@@ -8,6 +8,14 @@ on one device is a transpose of ``[n_src, n_dst, capacity, ...]`` to
 ``[n_dst, n_src, capacity, ...]``. Every shard takes part every tick
 (empty lanes are padding). Overflow beyond ``capacity`` per (source,
 destination) pair is dropped and counted; the host re-submits it.
+
+On a mesh over a process group (``make_mesh(..., group=g)``) each rank
+packs its ``n_local`` shards with K2 into ``[n_local, n_shards,
+capacity, ...]``, makes each destination rank's block contiguous, and
+sends it with one ``torch.distributed.all_to_all_single`` a tensor; a
+local transpose then gives ``[n_local, n_shards * capacity, ...]``, the
+JAX function's per-shard output for this rank's shards. Every rank enters
+every call, with its tensors in the same (sorted) order.
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ def build_exchange(mesh, capacity: int):
     delivered to each shard flattened over (source shard, lane); drops
     [n_shards] int32 overflow counts per source shard."""
     n_shards = mesh.n_shards
+    if mesh.group is not None:
+        return _group_exchange(mesh, capacity)
 
     def exchange(dest: torch.Tensor, valid: torch.Tensor, payload: dict):
         outbox, ovalid, drops = _pack_outbox(dest, valid, payload,
@@ -49,5 +59,41 @@ def build_exchange(mesh, capacity: int):
             return inbox.reshape(n_shards, n_shards * capacity,
                                  *a.shape[3:])
         return {k: swap(v) for k, v in outbox.items()}, swap(ovalid), drops
+
+    return exchange
+
+
+def _group_exchange(mesh, capacity: int):
+    """:func:`build_exchange` across the ranks of ``mesh.group``: dest /
+    valid [n_local, B] (global destination shards), payload [n_local, B,
+    ...]; returns recv [n_local, n_shards * capacity, ...], flattened over
+    (global source shard, lane), and drops [n_local]."""
+    import torch.distributed as dist
+    n_shards, n_local, world = mesh.n_shards, mesh.n_local, mesh.world
+    group = mesh.group
+
+    def swap(a: torch.Tensor) -> torch.Tensor:
+        # [src_local, dst, cap, ...] -> destination-rank blocks, each
+        # [dst_local, src_local, cap, ...], contiguous along dim 0; sent
+        # as bytes, so every dtype (bool, f16) crosses bit for bit
+        tail = a.shape[3:]
+        raw = a.transpose(0, 1).contiguous().reshape(-1).view(torch.uint8)
+        got = torch.empty_like(raw)
+        dist.all_to_all_single(got, raw, group=group)
+        got = got.view(a.dtype).reshape(world, n_local, n_local, capacity,
+                                        *tail)
+        # [src_rank, dst_local, src_local, cap] -> per local destination,
+        # lanes ordered by global source shard (src_rank, src_local)
+        return got.transpose(0, 1).reshape(n_local, n_shards * capacity,
+                                           *tail)
+
+    def exchange(dest: torch.Tensor, valid: torch.Tensor, payload: dict):
+        if dest.shape[0] != n_local:
+            raise ValueError(f"rank {mesh.rank} holds {n_local} shards; "
+                             f"got {dest.shape[0]} rows")
+        outbox, ovalid, drops = _pack_outbox(dest, valid, payload,
+                                             n_shards, capacity)
+        recv = {k: swap(outbox[k]) for k in sorted(outbox)}
+        return recv, swap(ovalid), drops
 
     return exchange

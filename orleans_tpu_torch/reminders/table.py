@@ -136,7 +136,12 @@ class SqliteReminderTable(ReminderTable):
             " etag INTEGER NOT NULL, PRIMARY KEY (gkey, name))")
         self._db.commit()
         self._lock = asyncio.Lock()
-        self._etag = 0
+        # etags continue from the file's rows: a counter restarted at 0
+        # would hand a reopened table's next write an etag that a row
+        # read before the restart already held, and a stale CAS remove
+        # would then match it
+        self._etag = self._db.execute(
+            "SELECT MAX(etag) FROM reminders").fetchone()[0] or 0
 
     @staticmethod
     def _gkey(grain_id: GrainId) -> str:

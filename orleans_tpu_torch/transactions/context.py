@@ -19,6 +19,7 @@ The port's copy of ``orleans_tpu.transactions.context``.
 from __future__ import annotations
 
 import itertools
+import os
 import random
 import time
 from typing import TYPE_CHECKING
@@ -35,6 +36,17 @@ __all__ = ["TXN_KEY", "TransactionInfo", "ambient_txn", "set_ambient_txn",
 # counter (uniqueness) — ~20× cheaper than uuid4 on the commit hot path
 _proc_tag = f"{random.getrandbits(48):012x}"
 _txn_counter = itertools.count(1)
+
+
+def _redraw_after_fork() -> None:
+    """A forked child draws its own tag and counter: shared ones would let
+    its wound-wait stamps tie with the parent's."""
+    global _proc_tag, _txn_counter
+    _proc_tag = f"{int.from_bytes(os.urandom(6), 'big'):012x}"
+    _txn_counter = itertools.count(1)
+
+
+os.register_at_fork(after_in_child=_redraw_after_fork)
 
 
 class TransactionInfo:

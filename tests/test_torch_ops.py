@@ -408,7 +408,10 @@ def test_port_imports_no_jax():
         "'services.grain_service', 'reminders.table', 'reminders.service', "
         "'transactions.context', 'transactions.log', 'transactions.state', "
         "'transactions.manager', 'eventsourcing.journaled', "
-        "'multicluster.gossip', 'multicluster.gsi'):\n"
+        "'multicluster.gossip', 'multicluster.gsi', 'parallel.mesh', "
+        "'parallel.transport', 'analysis', 'analysis.engine', "
+        "'analysis.summaries', 'analysis.rules.concurrency', "
+        "'analysis.rules.traced'):\n"
         "    assert 'orleans_tpu_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules "
         "if m.startswith('orleans_tpu_torch')]))\n")

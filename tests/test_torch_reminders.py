@@ -268,3 +268,26 @@ async def test_reminders_fire_again_on_a_restarted_silo(tmp_path):
     async def scenario(pkg):
         return await _restart_on_file(pkg, str(tmp_path / f"{pkg.name}.db"))
     assert await _parity(scenario) == (["file"] * 4, 4)
+
+
+async def test_reopened_sqlite_table_never_reissues_an_etag(tmp_path):
+    """A table reopened on its file (a restarted silo) continues the
+    etags of the rows there: a CAS remove with an etag read before the
+    restart must not match a row written after it. The JAX package
+    restarts its counter at 0 (a fault of the reference, kept there), so
+    this runs through the port only."""
+    path = str(tmp_path / "reminders.db")
+    gid = tids.GrainId.for_grain(tids.GrainType.of("AlarmGrain"), 7)
+
+    def entry(due):
+        return trem.ReminderEntry(gid, "AlarmGrain", "wake", due, 60.0)
+
+    before = trem.SqliteReminderTable(path)
+    stale = await before.upsert_row(entry(100.0))
+    await before.upsert_row(entry(101.0))
+    after = trem.SqliteReminderTable(path)
+    fresh = await after.upsert_row(entry(102.0))
+    assert fresh > stale + 1
+    assert not await after.remove_row(gid, "wake", etag=stale)
+    assert (await after.read_row(gid, "wake")).etag == fresh
+    assert await after.remove_row(gid, "wake", etag=fresh)

@@ -836,3 +836,30 @@ def test_transaction_infos_are_alike():
         [getattr(b, f) for f in b.__slots__]
     assert jr.context.TXN_KEY == tr.context.TXN_KEY == "orleans.txn"
     assert jtx.__all__ == ttx.__all__
+
+
+def test_forked_child_wound_wait_stamps_never_tie_with_the_parent():
+    """A forked child redraws the process tag and restarts the counter,
+    so its wound-wait stamps and ids never tie with the parent's (a
+    shared tag and counter would give both the same next stamp)."""
+    import os
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:  # the child: pure Python only, then out
+        try:
+            os.close(r)
+            infos = [tctx.TransactionInfo() for _ in range(4)]
+            os.write(w, json.dumps([[list(i.ts), i.id]
+                                    for i in infos]).encode())
+        finally:
+            os._exit(0)
+    os.close(w)
+    parent = [tctx.TransactionInfo() for _ in range(4)]
+    with os.fdopen(r, "rb") as fh:
+        child = json.loads(fh.read().decode())
+    os.waitpid(pid, 0)
+    assert len(child) == 4
+    assert {ts[1] for ts, _ in child} != {tctx._proc_tag}
+    mine = {(i.ts[1], i.ts[2]) for i in parent}
+    assert not mine & {(ts[1], ts[2]) for ts, _ in child}
+    assert not {i.id[8:] for i in parent} & {i[8:] for _, i in child}
