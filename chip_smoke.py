@@ -122,12 +122,21 @@ the script exits non-zero without its result line):
    fold) and an overflowing exchange of ``samples/ranks_torch.py``,
    equal to the one-device port. One card holds one rank (NCCL refuses
    two ranks on a card), so an exchange between cards is not verified.
+18. Phase P: the dispatch layer across ranks. Phase G's drive at its
+   full width (1,048,576 subscribers x 8 shards, 3 events in chunks of
+   16,384, 1,024 per-key calls deferred, the reductions, the map,
+   ``join_when``, a reshard 8 -> 7 -> 8) and then Phase C's sparse route,
+   both through a mesh over an NCCL group of one rank: the per-key
+   results gathered, each chunk through the process-group exchange (K2),
+   the reductions and counts through ``all_reduce``, the deadline agreed.
+   The reductions, the table and the totals must equal G's and C's
+   exactly, and K2 must launch.
 
 Phase H runs at 262,144 players (L1 runs its drive at full width). The
 launch counts are set to 0 just before Phase A and read just after Phase
-C, and again around Phases E, G, H, J, K, L, M, N and O: a kernel of a
-path that was not launched fails the run (A-C launch both kernels, G, J
-and K launch K2, H, L, M, N and O both; E's tick uses neither). The last
+C, and again around Phases E, G, H, J, K, L, M, N, O and P: a kernel of
+a path that was not launched fails the run (A-C launch both kernels, G,
+J, K and P launch K2, H, L, M, N and O both; E's tick uses neither). The last
 two lines are the ``kernels`` JSON (launches summed over those runs,
 errors and times in ms) and ``{"ok": true, "device": ...}``.
 """
@@ -811,13 +820,19 @@ def phase_b(dev, card, n_players=N_PLAYERS, supers=3, warm=1, quiet=False,
     return games[:n_g], {k: v.cpu() for k, v in tbl.state.items()}
 
 
-def phase_c(dev):
+def phase_c(dev, group=None, label="Phase C") -> dict:
+    """``dryrun_multichip`` phase 4: the sparse route of hashed keys
+    activated through ``call``. ``group``: on a mesh over that process
+    group (Phase P), whose ranks each route their own shards' lanes.
+    Returns each key's total (every rank reads its own shards' keys)."""
     from orleans_tpu_torch.dispatch import VectorRuntime
     from orleans_tpu_torch.ops import split64
-    from orleans_tpu_torch.parallel import make_mesh
+    from orleans_tpu_torch.parallel import all_reduce, make_mesh
     _, _, Counter = player_classes()
     n = SHARDS_B
-    rt = VectorRuntime(make_mesh(n, dev), capacity_per_shard=64)
+    mesh = make_mesh(n, dev, group=group)
+    rows = slice(mesh.shard0, mesh.shard0 + mesh.n_local)
+    rt = VectorRuntime(mesh, capacity_per_shard=64)
     ctbl = rt.table(Counter)
     hashes = [((k * 2654435761) ^ (k << 33)) & ((1 << 62) - 1) | (1 << 40)
               for k in range(1, 2 * n + 1)]
@@ -839,14 +854,15 @@ def phase_c(dev):
             amount[s, i] = 100 + s * B2 + i
             expect[h] = expect.get(h, 0) + int(amount[s, i])
     lo, hi = split64(dest)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev)
     rkeys, rpay, rvalid, drops = rt.route(
-        Counter, (torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev)),
-        {"amount": torch.from_numpy(amount).to(dev)},
-        torch.ones((n, B2), dtype=torch.bool, device=dev), capacity=16,
-        sparse=True)
-    assert int(drops.sum()) == 0
-    delivered = int(rvalid.sum())
-    assert delivered == n * B2
+        Counter, (up(lo), up(hi)), {"amount": up(amount)},
+        up(np.ones((n, B2), bool)), capacity=16, sparse=True)
+    assert int(all_reduce(mesh, drops.sum())) == 0
+    delivered = int(rvalid.sum())  # this process's lanes
+    assert int(all_reduce(mesh, rvalid.sum())) == n * B2
     applied_total = rounds = 0
     while applied_total < delivered and rounds <= delivered:
         _, applied = rt.apply_received(Counter, "add", rkeys, rvalid, rpay,
@@ -854,11 +870,19 @@ def phase_c(dev):
         applied_total += int(applied.sum())
         rvalid = rvalid & ~applied
         rounds += 1
-    assert applied_total == delivered and rounds >= 2
+    assert applied_total == delivered
+    assert int(all_reduce(mesh, torch.tensor(rounds, device=dev),
+                          "max")) >= 2
+    totals = {}
     for h, want in expect.items():
-        assert int(ctbl.read_row(h)["total"]) == want
-    print(f"Phase C: sparse route over {n} shards, {delivered} delivered, "
-          f"applied over {rounds} ticks (one deferred), totals verified")
+        if rows.start <= ctbl.key_to_slot[h][0] < rows.stop:
+            totals[h] = int(ctbl.read_row(h)["total"])
+            assert totals[h] == want
+    print(f"{label}: sparse route over {n} shards"
+          f"{'' if group is None else f' on rank {mesh.rank} of {mesh.world}'}"
+          f", {delivered} delivered here, applied over {rounds} ticks (one "
+          f"deferred), totals verified")
+    return totals
 
 
 def phase_d(dev):
@@ -1057,9 +1081,12 @@ def phase_e(dev, card, n_players=N_E, offloop=False, quiet=False):
     return state, ticks
 
 
-async def drive_fanout(rt, Fan, n_subs, events, chunk, rng):
-    """Phase G's traffic and checks; returns (reduced values, deliveries,
-    per-key calls, broadcast wall seconds, chunks)."""
+async def drive_fanout(rt, Fan, n_subs, events, chunk, rng, shrink=7):
+    """Phase G's traffic and checks, the reshard SHARDS_B -> ``shrink``
+    -> SHARDS_B over ``rt``'s process group where it has one; returns
+    (reduced values, the last table, deliveries, per-key calls, broadcast
+    wall seconds). Every value checked is the sum over the ranks, and
+    this process's rows are held against the closed form."""
     from orleans_tpu_torch.dispatch import VectorRuntime, reshard_dense
     from orleans_tpu_torch.parallel import make_mesh
     busy = rng.choice(n_subs, 1024, replace=False)
@@ -1091,14 +1118,24 @@ async def drive_fanout(rt, Fan, n_subs, events, chunk, rng):
     red["after_map"] = await rt.reduce_actors(Fan, "events")
     assert int(red["after_map"]) == total
     tbl = rt.table(Fan)
-    for shards in (7, SHARDS_B):
-        rt2 = VectorRuntime(make_mesh(shards, rt.device),
+    for shards in (shrink, SHARDS_B):
+        rt2 = VectorRuntime(make_mesh(shards, rt.device,
+                                      group=rt.mesh.group),
                             capacity_per_shard=-(-n_subs // shards))
         rt2.tables[Fan] = reshard_dense(tbl, rt2)
         tbl = rt2.table(Fan)
         got = await rt2.reduce_actors(Fan, "events")
         assert int(got) == total, (shards, int(got), total)
         red[f"resharded_{shards}"] = got
+    # this process's rows: every event, the busy keys' call, the map
+    want = np.full(n_subs, events + 1, np.int32)
+    want[busy] += 1
+    per = tbl.dense_per_shard
+    k0 = tbl.shard0 * per
+    got = tbl.state["events"][:, :per].reshape(-1)[:max(0, n_subs - k0)]
+    assert np.array_equal(got.cpu().numpy(), want[k0:k0 + got.numel()])
+    assert bool((tbl.state["last"][:, :per].reshape(-1)[:got.numel()]
+                 == 9.0).all())
     return red, tbl, delivered, busy.size, wall
 
 
@@ -1137,31 +1174,39 @@ def chunk_legs(rt, Fan, chunk: int, iters: int = 20):
     return out
 
 
-def phase_g(dev, card, n_subs=N_G, events=3, chunk=16384, quiet=False):
+def phase_g(dev, card, n_subs=N_G, events=3, chunk=16384, quiet=False,
+            group=None, shrink=7, label="Phase G", profile=True):
     """Bulk collectives at the celebrity fan-out width: 1M subscribers
     over 8 logical shards, 3 events broadcast to all with 1,024 per-key
     calls pending (deferred by _busy_split), then reduce (sum, max, min,
     mean), map over every subscriber, join_when at k = all, and the
-    reshard 8 → 7 → 8 with the sum unchanged. Every chunk is routed
-    through K2."""
+    reshard 8 → ``shrink`` → 8 with the sum unchanged. Every chunk is
+    routed through K2. ``group``: on a mesh over that process group
+    (Phase P; ``scripts/torch_ranks_super.py``), whose ranks each hold
+    their share of the 8 shards. ``profile``: the profiler passes after
+    the timed drive."""
     from orleans_tpu_torch.dispatch import VectorRuntime
     from orleans_tpu_torch.ops import KERNELS
     from orleans_tpu_torch.parallel import make_mesh
     Fan = fan_class()
-    rt = VectorRuntime(make_mesh(SHARDS_B, dev),
-                       capacity_per_shard=-(-n_subs // SHARDS_B))
+    mesh = make_mesh(SHARDS_B, dev, group=group)
+    rt = VectorRuntime(mesh, capacity_per_shard=-(-n_subs // SHARDS_B))
     rt.table(Fan).ensure_dense(n_subs)
     red, tbl, delivered, n_busy, wall = asyncio.run(drive_fanout(
-        rt, Fan, n_subs, events, chunk, np.random.default_rng(4)))
+        rt, Fan, n_subs, events, chunk, np.random.default_rng(4), shrink))
     launched = {k.name: k.launches for k in KERNELS}
     n_chunks = events * -(-n_subs // chunk)
     if not quiet:
-        print(f"Phase G: {n_subs} subscribers x {SHARDS_B} shards, {events} "
-              f"events in {n_chunks} chunks of {chunk} ({n_busy} per-key "
-              f"calls deferred): {delivered / wall:.0f} deliveries/sec, "
-              f"{wall / n_chunks * 1e3:.3f} ms/chunk, {wall:.3f} s; "
-              f"sum {int(red['sum'])}, after map {int(red['after_map'])}, "
-              f"unchanged through reshard 8->7->8 on {card}")
+        where = "" if group is None else \
+            f" on rank {mesh.rank} of {mesh.world} ({mesh.n_local} a rank)"
+        print(f"{label}: {n_subs} subscribers x {SHARDS_B} shards{where}, "
+              f"{events} events in {n_chunks} chunks of {chunk} ({n_busy} "
+              f"per-key calls deferred): {delivered / wall:.0f} "
+              f"deliveries/sec, {wall / n_chunks * 1e3:.3f} ms/chunk, "
+              f"{wall:.3f} s; sum {int(red['sum'])}, after map "
+              f"{int(red['after_map'])}, unchanged through reshard "
+              f"{SHARDS_B}->{shrink}->{SHARDS_B} on {card}")
+    if not quiet and profile:
         subs = np.arange(n_subs)
         kernels = device_breakdown(lambda: asyncio.run(
             rt.broadcast_actors(Fan, "on_next", subs,
@@ -3492,6 +3537,50 @@ def phase_o(dev, card, b_games, b_state) -> dict:
     return launches
 
 
+def phase_p(dev, card, g_red, g_state, c_totals) -> dict:
+    """Phase G's drive at its full width, then Phase C's sparse route,
+    through a mesh over an NCCL process group of one rank on this card
+    (a FileStore in a temporary directory): the per-key calls' results
+    gathered over the ranks, every broadcast chunk routed through the
+    process-group exchange (K2 packs it), the reductions and the
+    delivered counts through ``all_reduce``, ``join_when``'s deadline
+    agreed at every poll, the reshard 8 -> 7 -> 8 through a gather of the
+    rows, the hashed regime and the sparse route over the replicated
+    directory. G's drive runs once, without G's profiler passes. Held
+    exactly against G's reductions and table (``g_red``, ``g_state``) and
+    C's totals. Returns the phase's launches."""
+    import torch.distributed as dist
+    from orleans_tpu_torch.ops import KERNELS
+    tmp = build_tmpdir("phase_p_")
+    t0 = time.perf_counter()
+    try:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            group = dist.group.WORLD
+            for k in KERNELS:
+                k.launches = 0
+            red, state, _ = phase_g(dev, card, group=group,
+                                    label="Phase P (G)", profile=False)
+            totals = phase_c(dev, group=group, label="Phase P (C)")
+            launches = {k.name: k.launches for k in KERNELS}
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert red.keys() == g_red.keys()
+    for k in g_red:
+        a, b = np.asarray(red[k]), np.asarray(g_red[k])
+        assert a.dtype == b.dtype and np.array_equal(a, b), (k, a, b)
+    same_state(state, g_state, "Phase P against G")
+    assert totals == c_totals, (totals, c_totals)
+    print(f"Phase P: G's drive and C's sparse route through an NCCL group "
+          f"of 1 rank: reductions, table and totals == G and C exactly; "
+          f"launches {launches}; {time.perf_counter() - t0:.3f} s on "
+          f"{card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -3525,7 +3614,7 @@ def main() -> int:
     b_games, b_state = phase_b(dev, card)
     for k in KERNELS:  # Phase B's route and fan-in went through both
         assert k.launches > before_b[k.name], f"{k.name} not launched in B"
-    phase_c(dev)
+    c_totals = phase_c(dev)
     launches = {k.name: k.launches for k in KERNELS}
     for name, count in launches.items():
         assert count > 0, f"kernel {name} was not launched on the main path"
@@ -3547,7 +3636,7 @@ def main() -> int:
     # Phase G: the bulk collectives; every broadcast chunk ranks through K2
     for k in KERNELS:
         k.launches = 0
-    _, _, launches_g = phase_g(dev, card)
+    g_red, g_state, launches_g = phase_g(dev, card)
     assert launches_g[RANK_BY_DEST.name] > 0, "K2 not launched in Phase G"
     # Phase H: the hosted silo; its broadcast ranks through K2 and its
     # summaries fan in through K1
@@ -3627,13 +3716,22 @@ def main() -> int:
     for name, count in launches_o.items():
         assert count > 0, f"kernel {name} was not launched in Phase O"
     del b_state
+    # Phase P: G's drive and C's sparse route across the ranks of a
+    # process group; every broadcast chunk and the sparse route pack
+    # their outbox through K2
+    t_p = time.perf_counter()
+    launches_p = phase_p(dev, card, g_red, g_state, c_totals)
+    assert launches_p[RANK_BY_DEST.name] > 0, "K2 not launched in Phase P"
+    del g_state
+    print(f"Phase P: {time.perf_counter() - t_p:.3f} s")
     print(f"launches on the main path: A-C {launches}, E {launches_e}, "
           f"G {launches_g}, H {launches_h}, J {launches_j}, K {launches_k}, "
-          f"L {launches_l}, M {launches_m}, N {launches_n}, O {launches_o}")
+          f"L {launches_l}, M {launches_m}, N {launches_n}, O {launches_o}, "
+          f"P {launches_p}")
     launches = {name: launches[name] + launches_e[name] + launches_g[name]
                 + launches_h[name] + launches_j[name] + launches_k[name]
                 + launches_l[name] + launches_m[name] + launches_n[name]
-                + launches_o[name] for name in launches}
+                + launches_o[name] + launches_p[name] for name in launches}
 
     sources = {SEGMENT_SUM.name: ("orleans_tpu/ops/segment_reduce.py:87",
                                   "orleans_tpu_torch/ops/csrc/segment_sum.cu"),

@@ -41,6 +41,18 @@ rotates back to "filling" while a copy still reads it.
 
 Batch buckets are powers of two with a floor (``_bucket``), as in the
 JAX package, so both packages see the same ``[n_shards, B]`` layouts.
+
+On a mesh over a process group (``make_mesh(n, device, group=g)``) the
+engine is one controller's, run on every rank (SPMD): every rank makes
+the same calls in the same order and keeps the same host bookkeeping
+(the tables' key maps, free lists and bitmaps, the pending queue), and
+only the ``[n_local, ...]`` pools and batches are the rank's own. A
+batch's ``B`` comes from the largest count over all ``n_global`` shards,
+so every rank's batch has the same shape; results every caller must see
+(a per-key tick's, a reduction's, a broadcast's count) cross the ranks
+by ``gather`` or ``all_reduce``, and a deadline by ``agree``. The
+off-loop worker raises ``GroupMeshError`` there: its collectives and the
+loop's could cross in a different order on each rank.
 """
 
 from __future__ import annotations
@@ -66,8 +78,8 @@ from ..observability.stats import INGEST_STATS as _INGEST
 from ..ops.hash_probe import device_lookup64
 from ..ops.route import rank_dense_keys
 from ..ops.segment_reduce import REDUCE_OPS, host_fold, masked_reduce
-from ..parallel.mesh import (Mesh, make_mesh, refuse_in_worker,
-                             refuse_on_group)
+from ..parallel.mesh import (Mesh, agree, all_reduce, gather, make_mesh,
+                             refuse_in_worker, refuse_on_group)
 from ..parallel.transport import build_exchange
 from .table import _LOC_STRIDE, ShardedActorTable
 from .vector_grain import ActorMethod, VectorGrain
@@ -152,9 +164,12 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 
 
 async def join_poll(reduce_once, need: int, timeout: float | None,
-                    poll: float) -> int:
+                    poll: float, agree_expired=None) -> int:
     """Await ``reduce_once()`` (a sum over the key set) until its first
-    leaf reaches ``need`` or ``timeout`` elapses; returns the count."""
+    leaf reaches ``need`` or ``timeout`` elapses; returns the count.
+    ``agree_expired(flag) -> bool`` makes the deadline decision the same
+    on every rank of a group mesh (``parallel.agree``), so all leave, or
+    all raise, on the same poll."""
     loop = asyncio.get_running_loop()
     deadline = None if timeout is None else loop.time() + timeout
     while True:
@@ -165,7 +180,13 @@ async def join_poll(reduce_once, need: int, timeout: float | None,
             ready = int(leaves[0]) if leaves else 0
         if ready >= need:
             return ready
-        if deadline is not None and loop.time() >= deadline:
+        if deadline is None:
+            expired = False
+        else:
+            expired = loop.time() >= deadline
+            if agree_expired is not None:
+                expired = agree_expired(expired)
+        if expired:
             raise asyncio.TimeoutError(
                 f"join_when: {ready}/{need} ready after {timeout}s")
         await asyncio.sleep(poll)
@@ -185,17 +206,25 @@ class _Packed(NamedTuple):
 
 def _pack_lanes(tbl, shard: np.ndarray, slot: np.ndarray, keys: np.ndarray,
                 fresh: np.ndarray | None = None) -> _Packed:
-    """Group M (shard, slot) targets into padded ``[n_shards, B]``
-    batches: targets keep their order within a shard, idle lanes aim at
-    the sink row."""
-    n = tbl.n_shards
+    """Group M (global shard, slot) targets into padded ``[n_shards, B]``
+    batches of this process's rows: targets keep their order within a
+    shard, idle lanes aim at the sink row. ``B`` comes from the largest
+    count over all ``n_global`` shards, so every rank of a group mesh
+    packs the same shape; targets on other ranks' shards are left out
+    (``order``, ``counts``, ``shard_sorted`` and ``lane`` describe this
+    process's targets, ``shard_sorted`` as rows)."""
+    n, s0 = tbl.n_shards, tbl.shard0
     order = np.argsort(shard, kind="stable")
-    counts = np.bincount(shard, minlength=n)
+    counts = np.bincount(shard, minlength=tbl.n_global)
     B = _bucket(int(counts.max()) if shard.size else MIN_BUCKET)
+    if n != tbl.n_global:
+        ss = shard[order]
+        order = order[(ss >= s0) & (ss < s0 + n)]
+        counts = counts[s0:s0 + n]
     starts = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(counts, out=starts[1:])
-    ss = shard[order]
-    lane = np.arange(shard.size) - starts[ss]
+    ss = shard[order] - s0
+    lane = np.arange(order.size) - starts[ss]
     slots_b = np.full((n, B), tbl.sink_slot, dtype=np.int32)
     valid_b = np.zeros((n, B), dtype=bool)
     khash_b = np.zeros((n, B), dtype=np.int32)
@@ -505,6 +534,7 @@ class VectorRuntime:
         # off-loop tick: claimed batches run on a worker thread of this
         # engine, which holds the fence for each whole batch; futures
         # resolve back on the loop through call_soon_threadsafe
+        self._offloop_tick = False
         self.offloop_tick = bool(getattr(options, "offloop_tick", False))
         self._fence = threading.RLock()
         self._worker: threading.Thread | None = None
@@ -598,7 +628,6 @@ class VectorRuntime:
 
     def actor(self, grain_class: type, key: int | str) -> VectorActorRef:
         """Reference to one device-tier activation."""
-        refuse_on_group(self.mesh, "VectorRuntime.actor")
         gid = GrainId.for_grain(GrainType.of(grain_class.__name__), key)
         kh = self.key_hash_for(key, gid.uniform_hash)
         self.table(grain_class).note_route(kh, gid.uniform_hash)
@@ -625,7 +654,6 @@ class VectorRuntime:
     def call(self, grain_class: type, key_hash: int, method: str,
              **args) -> asyncio.Future:
         """Queue one invocation; the future resolves after its tick."""
-        refuse_on_group(self.mesh, "VectorRuntime.call")
         m = self.method_of(grain_class, method)
         if m.args_schema is not None:
             _validate_args(grain_class, method, m.args_schema, args)
@@ -649,7 +677,6 @@ class VectorRuntime:
         future with the error (or drops a one-way item); the rest proceed.
         ``traces``: per-item ``(trace_id, parent_span_id)`` or None;
         ``origin``: the originating worker process of every item."""
-        refuse_on_group(self.mesh, "VectorRuntime.call_group")
         m = self.method_of(grain_class, method)
         schema = m.args_schema
         skeys = schema.keys() if schema is not None else None
@@ -790,6 +817,20 @@ class VectorRuntime:
         the tick path that mutates or reads table state takes it, so it
         never interleaves with a worker batch."""
         return self._fence
+
+    @property
+    def offloop_tick(self) -> bool:
+        """Whether claimed batches run on the engine's worker thread.
+        Setting it on a group mesh raises ``GroupMeshError``: the
+        worker's collectives and the loop's bulk collectives could cross
+        in a different order on each rank."""
+        return self._offloop_tick
+
+    @offloop_tick.setter
+    def offloop_tick(self, on: bool) -> None:
+        if on:
+            refuse_on_group(self.mesh, "the off-loop tick (offloop_tick)")
+        self._offloop_tick = bool(on)
 
     def _ensure_worker(self) -> None:
         if self._worker is not None:
@@ -1040,8 +1081,10 @@ class VectorRuntime:
         if inferred:
             schema = {k: (np.asarray(v).dtype, np.asarray(v).shape)
                       for k, v in ready[0].args.items()}
-        n = tbl.n_shards
-        per_shard: list[list[_Pending]] = [[] for _ in range(n)]
+        # the turns of every global shard (every rank of a group mesh
+        # claims the same batch): this process fills its own rows, and B
+        # comes from all of them, so every rank's staging has one shape
+        per_shard: list[list[_Pending]] = [[] for _ in range(tbl.n_global)]
         for p in ready:
             per_shard[p.shard].append(p)
         B = _bucket(max(len(ps) for ps in per_shard))
@@ -1050,7 +1093,8 @@ class VectorRuntime:
         fresh, valid = stg.fresh, stg.valid
         args_stacked = stg.args
         any_fresh = False
-        for s, ps in enumerate(per_shard):
+        for s in range(tbl.n_shards):
+            ps = per_shard[tbl.shard0 + s]
             stg.used[s] = len(ps)
             for i, p in enumerate(ps):
                 slots[s, i] = p.slot
@@ -1105,7 +1149,10 @@ class VectorRuntime:
                 # the sync below is where the device work is paid on the
                 # loop (the slice the off-loop worker removes)
                 lp.set_category("tick_sync")
-            host = _tree_map(_to_host, results)
+            # [n_global, B, ...] on every rank: each future resolves with
+            # the same value everywhere
+            host = _tree_map(lambda r: _to_host(gather(self.mesh, r)),
+                             results)
             if not _leaves(host):
                 # nothing was copied back: sync on an event after the
                 # kernel, so the staging set can rotate back safely
@@ -1176,11 +1223,10 @@ class VectorRuntime:
         shard, slot = tbl.dense_shard_slot(keys)
         sel, first = None, 0
         if self.mesh.group is not None:
-            # this rank's keys only, its shards as rows 0..n_local-1
+            # this rank's keys only (packed as its rows 0..n_local-1)
             sel = np.flatnonzero((shard >= tbl.shard0)
                                  & (shard < tbl.shard0 + tbl.n_shards))
-            keys, shard, slot = keys[sel], shard[sel] - tbl.shard0, \
-                slot[sel]
+            keys, shard, slot = keys[sel], shard[sel], slot[sel]
             M = keys.shape[0]
             # an identity plan starts at this rank's first dense key, and
             # its keys are one run of the caller's order
@@ -1510,7 +1556,6 @@ class VectorRuntime:
         activation of ``grain_class``, or to a key subset, as bulk ticks.
         Keys with per-key turns in flight defer to later rounds. Returns
         the number of activations applied."""
-        refuse_on_group(self.mesh, "VectorRuntime.map_actors")
         m = self.method_of(grain_class, method)
         if m.args_schema is not None:
             # fail even when the live population is empty
@@ -1534,7 +1579,6 @@ class VectorRuntime:
         host. ``combine``: "sum" | "max" | "min" | "mean" (mean = sum /
         count, combined exactly across rounds). Returns numpy values, or
         None when no live actor matched."""
-        refuse_on_group(self.mesh, "VectorRuntime.reduce_actors")
         value, count = await self.reduce_actors_partial(
             grain_class, method, kwargs, keys, combine)
         if value is None or count == 0:
@@ -1548,8 +1592,10 @@ class VectorRuntime:
                                     keys: np.ndarray | None = None,
                                     combine: str = "sum"):
         """``(partial_value, count)`` of :meth:`reduce_actors`, where a
-        mean partial carries the sum: the form a cross-silo merge folds."""
-        refuse_on_group(self.mesh, "VectorRuntime.reduce_actors_partial")
+        mean partial carries the sum: the form a cross-silo merge folds.
+        On a group mesh each round folds this rank's lanes, then the
+        ranks' folds (``all_reduce``); every rank takes part in every
+        round, a rank with no lane of its own giving the identity."""
         op = "sum" if combine == "mean" else combine
         if op not in REDUCE_OPS:
             raise ValueError(
@@ -1565,7 +1611,7 @@ class VectorRuntime:
         def on_apply(results, valid_b, n: int) -> None:
             nonlocal total, count
             part = _tree_map(
-                lambda t: t.cpu().numpy(),
+                lambda t: all_reduce(self.mesh, t, op).cpu().numpy(),
                 masked_reduce(results, self._upload(valid_b), op=op))
             count += n
             total = part if total is None else _tree_map2(fold, total, part)
@@ -1629,8 +1675,8 @@ class VectorRuntime:
         exchange (``route``, K2) to the owning shards and is applied by
         :meth:`apply_received`, whose dedup gives duplicate targets the
         mailbox-defer semantics across ticks. Targets with per-key turns
-        in flight defer to later rounds. Returns the edges delivered."""
-        refuse_on_group(self.mesh, "VectorRuntime.broadcast_actors")
+        in flight defer to later rounds. Returns the edges delivered
+        (over every rank of a group mesh)."""
         tbl = self.table(grain_class)
         targets = np.asarray(targets, dtype=np.int64).reshape(-1)
         if targets.size and (targets.min() < 0
@@ -1685,7 +1731,6 @@ class VectorRuntime:
         fan-out through :meth:`broadcast_actors`. Items stacked item-major
         keep per-key event order (first occurrence wins each dedup
         round). Returns edge-events delivered."""
-        refuse_on_group(self.mesh, "VectorRuntime.stream_fanout")
         targets = np.asarray(targets, dtype=np.int64).reshape(-1)
         d = await self.broadcast_actors(grain_class, method, targets, args,
                                         chunk=chunk)
@@ -1698,10 +1743,13 @@ class VectorRuntime:
                          targets: np.ndarray, args: dict) -> int:
         """Route one edge chunk to its owning shards and apply it,
         re-applying deduped duplicate-target lanes tick by tick until
-        every edge lands. Synchronous, so no per-key turn interleaves."""
+        every edge lands. Synchronous, so no per-key turn interleaves.
+        On a group mesh each rank routes its own source shards' rows and
+        runs the dedup rounds on what it received; the count returned is
+        every rank's."""
         tbl = self.table(cls)
         self._bulk_activate(cls, targets)
-        n = tbl.n_shards
+        n = tbl.n_global
         E = targets.shape[0]
         if E == 0:
             return 0
@@ -1728,15 +1776,17 @@ class VectorRuntime:
             # (src, dst) pair can overflow
             L = _bucket(-(-E // n))
             pad = n * L - E
-            payload = {f: self._upload(padded(args[f], dtype, shape, pad)
-                                       .reshape(n, L, *shape))
+            rows = slice(tbl.shard0, tbl.shard0 + tbl.n_shards)
+
+            def src(a):
+                """This process's source shards of ``[n * L, ...]``."""
+                return self._upload(a.reshape(n, L, *a.shape[1:])[rows])
+
+            payload = {f: src(padded(args[f], dtype, shape, pad))
                        for f, (dtype, shape) in schema.items()}
             recv_keys, recv_args, recv_valid, drops = self.route(
-                cls,
-                self._upload(padded(targets, torch.int64, (), pad)
-                             .reshape(n, L)),
-                payload, self._upload((np.arange(n * L) < E).reshape(n, L)),
-                capacity=L)
+                cls, src(padded(targets, torch.int64, (), pad)), payload,
+                src(np.arange(n * L) < E), capacity=L)
             # capacity == L: a drop means the invariant broke, not load
             assert int(drops.sum()) == 0
         delivered = 0
@@ -1751,6 +1801,9 @@ class VectorRuntime:
             # first of each applies); the guard stops a logic bug spinning
             if int(valid.sum()) == 0 or got == 0:
                 break
+        if self.mesh.group is not None:
+            delivered = int(all_reduce(self.mesh, torch.tensor(
+                [delivered], dtype=torch.int64, device=self.device)).item())
         if delivered and not tbl.methods[method].read_only:
             # broadcast holds its targets on the host, so the write-behind
             # flusher sees them (unlike device-resident exchange flows)
@@ -1765,14 +1818,14 @@ class VectorRuntime:
         """Resolve when at least ``k`` of ``keys`` (default: all) report
         ready through ``method``, a read-only method returning 0/1 per
         actor. Each poll is one reduce_actors sum. Returns the ready
-        count observed."""
-        refuse_on_group(self.mesh, "VectorRuntime.join_when")
+        count observed. On a group mesh the ranks agree on the deadline
+        at every poll, so all return, or all raise, on the same poll."""
         keys = np.asarray(keys, dtype=np.int64)
         need = int(keys.size if k is None else k)
         return await join_poll(
             lambda: self.reduce_actors(grain_class, method, kwargs,
                                        keys=keys, combine="sum"),
-            need, timeout, poll)
+            need, timeout, poll, agree_expired=partial(agree, self.mesh))
 
     # ------------------------------------------------------------------
     # Device-tier actor→actor messaging
@@ -1790,11 +1843,13 @@ class VectorRuntime:
         ``sparse=True``: dest_keys is a ``(keys_lo, keys_hi)`` int32 pair
         (62-bit keys split by ops.hash_probe.split64), and the owning shard
         is resolved on the device through the table's DeviceDirectory64;
-        unregistered keys are dropped and counted."""
+        unregistered keys are dropped and counted.
+
+        On a group mesh the operands are this rank's ``[n_local, B]``
+        rows, the recv lanes ``[n_local, n_shards*capacity]``, and every
+        rank's directory holds every key with its global shard."""
         if "__key__" in payload:
             raise ValueError("payload field name '__key__' is reserved")
-        if sparse:
-            refuse_on_group(self.mesh, "VectorRuntime.route(sparse=True)")
         tbl = self.table(dest_class)
         key = ("exchange", tbl.n_shards, capacity)
         ex = self._kernel_cache.get(key)
@@ -1834,9 +1889,6 @@ class VectorRuntime:
 
         Returns (results [n_shards, L, ...], applied [n_shards, L])."""
         self.method_of(dest_class, method)  # validate the method exists
-        if sparse:
-            refuse_on_group(self.mesh,
-                            "VectorRuntime.apply_received(sparse=True)")
         slots, applied, khash = self._apply_resolver(
             dest_class, sparse)(recv_keys, recv_valid)
         fresh = torch.zeros_like(applied)
@@ -1872,7 +1924,8 @@ class VectorRuntime:
                 loc, found = device_lookup64(tk_lo, tk_hi, tv, lo.reshape(-1),
                                              hi.reshape(-1), probes)
                 loc, found = loc.reshape(lo.shape), found.reshape(lo.shape)
-                myshard = torch.arange(n_shards, device=lo.device)[:, None]
+                myshard = tbl.shard0 + torch.arange(
+                    n_shards, device=lo.device)[:, None]
                 # a lane misrouted against a stale directory must not
                 # scribble another actor's slot on this shard
                 v = ok & found & ((loc // _LOC_STRIDE) == myshard)

@@ -6,8 +6,9 @@ VectorGrain class lives in a slot pool of shape ``[n_shards, capacity+1,
 write sink for padding lanes, so masked scatters never collide with real
 rows; its contents are undefined.
 
-Key → shard is ``key % n_shards`` in the hashed regime; the slot within
-the shard comes from a host-side free list. Two key regimes:
+Key → shard is ``key % n_global`` in the hashed regime (``n_global`` is
+the mesh's shard count); the slot within the shard comes from a
+host-side free list. Two key regimes:
 
 * **hashed** (general): host dict key→(shard, slot), mirrored on device by
   a ``DeviceDirectory64`` so sparse keys can be resolved in the tick.
@@ -18,9 +19,13 @@ the shard comes from a host-side free list. Two key regimes:
 
 On a mesh over a process group the table holds only this rank's
 ``[n_local, capacity+1, *field]`` pools: ``n_shards`` is the rows held
-here, ``n_global`` the mesh's shards, and the dense mapping runs over
-``n_global`` (global shard ``shard0 + row``). Only the dense regime runs
-there; the hashed regime raises ``GroupMeshError``.
+here, ``n_global`` the mesh's shards, and both regimes map keys over
+``n_global`` (global shard ``shard0 + row``). The host bookkeeping is
+one controller's, kept alike on every rank: ``key_to_slot``, the free
+lists of all ``n_global`` shards, the directory with global locations,
+``dense_active`` and ``route_hash``. So every rank must make the same
+calls in the same order; ``grow`` then runs on every rank alike.
+``move_rows`` (rows between ranks) raises ``GroupMeshError``.
 """
 
 from __future__ import annotations
@@ -81,9 +86,10 @@ class ShardedActorTable:
         # key_hash -> the GrainId uniform hash that routes it, where they
         # differ (small int keys): what an ownership sweep reads
         self.route_hash: dict[int, int] = {}
+        # free slots of every global shard (replicated on a group)
         self.free: list[list[int]] = [
             list(range(self.capacity - 1, -1, -1))
-            for _ in range(self.n_shards)]
+            for _ in range(self.n_global)]
         self.dense_n = 0  # keys [0, dense_n) are dense-mapped
         self.dense_per_shard = 0
         self.dense_active = np.zeros(0, dtype=bool)
@@ -210,7 +216,7 @@ class ShardedActorTable:
         self.dense_per_shard = per_shard
         # host-side activation bitmap: which dense keys were fresh-inited
         self.dense_active = np.zeros(n, dtype=bool)
-        for s in range(self.n_shards):
+        for s in range(self.n_global):
             self.free[s] = [i for i in self.free[s]
                             if i >= self.dense_per_shard]
 
@@ -237,12 +243,11 @@ class ShardedActorTable:
 
     # -- hashed regime ----------------------------------------------------
     def lookup_or_allocate(self, key_hash: int) -> tuple[int, int, bool]:
-        """Returns (shard, slot, fresh)."""
-        refuse_on_group(self.mesh, "the hashed key regime")
+        """Returns (global shard, slot, fresh)."""
         loc = self.key_to_slot.get(key_hash)
         if loc is not None:
             return loc[0], loc[1], False
-        shard = key_hash % self.n_shards
+        shard = key_hash % self.n_global
         if not self.free[shard]:
             self.grow(self.capacity * 2)
         slot = self.free[shard].pop()
@@ -275,7 +280,9 @@ class ShardedActorTable:
         move reads and replaces ``state``, which must not interleave with
         a batch of the off-loop worker. Keeping pending or in-flight calls
         off a moving key stays the caller's job
-        (``VectorRuntime.pending_key_hashes``)."""
+        (``VectorRuntime.pending_key_hashes``). Raises ``GroupMeshError``
+        on a group mesh: rows between ranks are rebalancing, queued."""
+        refuse_on_group(self.mesh, "move_rows")
         with self.fence:
             return self._move_rows(keys, dest_shards)
 
@@ -386,7 +393,7 @@ class ShardedActorTable:
                 grown = self._counter(new_capacity)
                 grown[:, :old] = old_ctr[:, :old]
                 setattr(self, name, grown)
-        for s in range(self.n_shards):
+        for s in range(self.n_global):
             self.free[s] = list(range(new_capacity - 1, old - 1, -1)) \
                 + self.free[s]
         self.capacity = new_capacity
@@ -397,19 +404,19 @@ class ShardedActorTable:
             return self._read_row(key_hash)
 
     def _read_row(self, key_hash: int) -> dict[str, np.ndarray] | None:
+        """The row of ``key_hash`` from this process's pools; a key whose
+        shard another rank holds raises ``ValueError``."""
         loc = self.key_to_slot.get(key_hash)
         if loc is None:
-            if 0 <= key_hash < self.dense_n:
-                loc = (key_hash // self.dense_per_shard - self.shard0,
-                       key_hash % self.dense_per_shard)
-                if not 0 <= loc[0] < self.n_shards:
-                    raise ValueError(
-                        f"dense key {key_hash} lives on global shard "
-                        f"{loc[0] + self.shard0}, not on rank "
-                        f"{self.mesh.rank}'s shards")
-            else:
+            if not 0 <= key_hash < self.dense_n:
                 return None
-        shard, slot = loc
+            loc = (key_hash // self.dense_per_shard,
+                   key_hash % self.dense_per_shard)
+        shard, slot = loc[0] - self.shard0, loc[1]
+        if not 0 <= shard < self.n_shards:
+            raise ValueError(
+                f"key {key_hash} lives on global shard {loc[0]}, not on "
+                f"rank {self.mesh.rank}'s shards")
         return {k: v[shard, slot].cpu().numpy().copy()
                 for k, v in self.state.items()}
 

@@ -11,7 +11,11 @@ world`` shards a rank, and shard ``rank * n_local + local`` is the global
 shard, so key → shard is what it is on one device. The caller builds the
 group (NCCL for a CUDA device, gloo for the CPU; nothing falls back from
 one to the other). The exchange then is one ``all_to_all_single`` a
-tensor over the ranks and merged reads an ``all_reduce``; the entry
+tensor over the ranks, merged reads and reductions an ``all_reduce``,
+and results every rank must hold a :func:`gather` of each rank's rows.
+Every rank keeps the same host bookkeeping and makes the same calls in
+the same order; a host decision that rests on a rank's own values (a
+deadline, a device result) goes through :func:`agree` first. The entry
 points that do not run across ranks yet raise :class:`GroupMeshError`.
 
 A forked worker process of a multi-process silo (``runtime.multiproc``)
@@ -29,7 +33,7 @@ from dataclasses import dataclass
 import torch
 
 __all__ = ["SILO_AXIS", "GroupMeshError", "Mesh", "WorkerProcessError",
-           "all_reduce", "in_worker_process", "make_mesh",
+           "agree", "all_reduce", "gather", "in_worker_process", "make_mesh",
            "mark_worker_process", "refuse_in_worker", "refuse_on_group",
            "resolve_device"]
 
@@ -70,12 +74,11 @@ class GroupMeshError(NotImplementedError):
 
 
 # what runs across ranks, and where the rest is queued
-_GROUP_PATH = ("a process-group mesh runs the dense path only "
-               "(make_dense_plan, call_batch, call_batch_rounds, "
-               "call_batch_device, the dense route and apply_received, and "
-               "replicated workers' call_batch and read_merged)")
-_GROUP_NEXT = ("ROADMAP Queue 4 item 1: the per-key async tick, the bulk "
-               "collectives, the sparse route and hosting across ranks")
+_GROUP_PATH = ("a process-group mesh runs the dispatch layer (the dense "
+               "and per-key paths, the bulk collectives, the sparse route, "
+               "the hashed regime, reshard_dense and replicated workers)")
+_GROUP_NEXT = ("ROADMAP Queue 4 item 1: hosting, the off-loop worker on a "
+               "group and move_rows between ranks")
 
 _BACKEND_FOR = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -163,6 +166,34 @@ def all_reduce(mesh: Mesh, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
     dist.all_reduce(out, op=getattr(dist.ReduceOp, _REDUCE_OPS[op]),
                     group=mesh.group)
     return out.to(t.dtype)
+
+
+def gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """This rank's ``[n_local, ...]`` rows gathered over the ranks into
+    ``[n_shards, ...]``, in global shard order; ``t`` itself on a
+    one-device mesh. The rows cross as bytes, as the exchange's do, so
+    every dtype (bool, float16) crosses bit for bit. Every rank must call
+    it with the same shape and dtype."""
+    if mesh.group is None:
+        return t
+    import torch.distributed as dist
+    raw = t.contiguous().reshape(-1).view(torch.uint8)
+    parts = [torch.empty_like(raw) for _ in range(mesh.world)]
+    dist.all_gather(parts, raw, group=mesh.group)
+    return torch.cat(parts).view(t.dtype).reshape(
+        mesh.world * t.shape[0], *t.shape[1:])
+
+
+def agree(mesh: Mesh, flag: bool) -> bool:
+    """True on every rank when ``flag`` is true on any rank (a MAX over
+    the ranks): the one way a host decision that rests on a rank's own
+    clock or values is taken alike everywhere. ``flag`` on a one-device
+    mesh."""
+    if mesh.group is None:
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32,
+                     device=mesh.device)
+    return bool(all_reduce(mesh, t, "max").item())
 
 
 def resolve_device(device=None) -> torch.device:

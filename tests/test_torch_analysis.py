@@ -14,9 +14,11 @@ The whole-package scans are shared in module-scoped fixtures."""
 import contextlib
 import io
 import json
+import multiprocessing
 import os
 import re
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import pytest
 
@@ -69,20 +71,26 @@ def port_scans():
     """The copy over the port: cold (cache cleared) with stats, then warm
     through the CLI with no path from the repository's root (its
     default, ``python -m orleans_tpu_torch.analysis --stats``); and the
-    reference over the port."""
-    tsum._CACHE.clear()
-    cold: dict = {}
-    cold_findings = ta.analyze_paths([PORT], stats=cold)
-    out, err = io.StringIO(), io.StringIO()
-    here = os.getcwd()
-    os.chdir(REPO)
-    try:
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = cli_main(["--stats"])
-        warm_s = time.perf_counter() - t0
-    finally:
-        os.chdir(here)
+    reference over the port, in a fresh process meanwhile (the scans are
+    CPU-bound, and the reference shares no cache with the copy)."""
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        ref = pool.submit(ra.analyze_paths, [PORT])
+        tsum._CACHE.clear()
+        cold: dict = {}
+        cold_findings = ta.analyze_paths([PORT], stats=cold)
+        out, err = io.StringIO(), io.StringIO()
+        here = os.getcwd()
+        os.chdir(REPO)
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli_main(["--stats"])
+            warm_s = time.perf_counter() - t0
+        finally:
+            os.chdir(here)
+        ref_findings = ref.result(timeout=120)
     summarize_ms, hits, lookups = _STATS.search(err.getvalue()).groups()
     warm = {"summarize_s": float(summarize_ms) / 1e3,
             "cache_hits": int(hits),
@@ -90,7 +98,7 @@ def port_scans():
     return {"cold": cold_findings, "cold_stats": cold, "cli_rc": rc,
             "cli_out": out.getvalue(), "cli_err": err.getvalue(),
             "warm_stats": warm, "warm_s": warm_s,
-            "ref": ra.analyze_paths([PORT])}
+            "ref": ref_findings}
 
 
 # ---------------------------------------------------------------------------

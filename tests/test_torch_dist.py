@@ -1,18 +1,25 @@
 """The silo axis across ranks: the port's process-group mesh, exchange,
-Phase B's super and merged reads, on gloo ranks on the CPU.
+Phase B's super, merged reads, the sparse route, the per-key tick, the
+bulk collectives and ``reshard_dense``, on gloo ranks on the CPU.
 
 ``samples/ranks_torch.py`` runs each scenario (the exchange with
 overflow, ``bench.py --devices 8``'s super at ``dryrun_multichip(8)``'s
-shapes, a replicated worker's calls and merged reads) on every rank of a
-gloo group: 2 ranks of 4 shards and 8 ranks of 1. The ranks are spawned
-once for the module, as fresh interpreters joined through a file in a
-temporary directory (no port), each group within 60 s or killed. Their
-outputs, stacked along the shard axis, are held against the same inputs
-through the JAX package on its 8-virtual-device mesh (``all_to_all``,
-``psum``/``pmax``/``pmin``) and through the one-device port.
-Tolerance: exact. Every value compared is an integer or a bool, except
-the float32 player positions and the float16 payload of the exchange,
-which are copied, never summed, so they are equal bit for bit too.
+shapes, a replicated worker's calls and merged reads, ``dryrun_multichip``
+phase 4's sparse route with its hashed activation and dedup, Phase G's
+fan-out with per-key calls, reductions, map, ``join_when`` and a reshard
+8 -> 4 -> 8, and a ``join_when`` that times out) on every rank of a gloo
+group: 2 ranks of 4 shards and 8 ranks of 1 (where 4 shards do not
+divide, so the reshard is refused naming the world). The ranks are
+spawned once for the module, as fresh interpreters joined through a file
+in a temporary directory (no port), each group within 60 s or killed; a
+rank that entered a collective the others did not would hang its group
+until then. Their outputs, stacked along the shard axis, are held
+against the same inputs through the JAX package on its 8-virtual-device
+mesh (``all_to_all``, ``psum``/``pmax``/``pmin``; its 4-device mesh for
+the reshard) and through the one-device port.
+Tolerance: exact for every integer and bool, and for the float32 and
+float16 values, which are copied, never summed, so they are equal bit
+for bit; the float reduce ``mean`` within 1e-6 relative.
 """
 
 import asyncio
@@ -30,13 +37,17 @@ import __graft_entry__
 from orleans_tpu.dispatch import VectorGrain as JGrain
 from orleans_tpu.dispatch import VectorRuntime as JRuntime
 from orleans_tpu.dispatch import actor_method as j_method
+from orleans_tpu.dispatch import reshard_dense as j_reshard
 from orleans_tpu.dispatch.replicated import replicated_worker as j_repl
 from orleans_tpu.ops import segment_sum as j_segment_sum
 from orleans_tpu.parallel import make_mesh as j_mesh
 from orleans_tpu.parallel.transport import build_exchange as j_exchange
+from orleans_tpu_torch.config import DispatchOptions
 from orleans_tpu_torch.dispatch import VectorRuntime as TRuntime
 from orleans_tpu_torch.dispatch import add_vector_grains, reshard_dense
-from orleans_tpu_torch.parallel import GroupMeshError, all_reduce, make_mesh
+from orleans_tpu_torch.ops import split64
+from orleans_tpu_torch.parallel import (GroupMeshError, agree, all_reduce,
+                                        gather, make_mesh)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "samples"))
@@ -76,6 +87,45 @@ class HitsGrain(JGrain):
                "peak": jnp.maximum(state["peak"], args["v"]),
                "low": jnp.minimum(state["low"], args["v"])}
         return new, new["hits"]
+
+
+class CounterVec(JGrain):
+    STATE = {"total": (jnp.int32, ()), "hits": (jnp.int32, ())}
+
+    @staticmethod
+    def initial_state(key_hash):
+        return {"total": jnp.int32(0), "hits": jnp.int32(0)}
+
+    @j_method(args={"amount": (jnp.int32, ())})
+    def add(state, args):
+        new = {"total": state["total"] + args["amount"],
+               "hits": state["hits"] + 1}
+        return new, new["total"]
+
+    @j_method(read_only=True)
+    def get(state, args):
+        return state, state["total"]
+
+
+class FanVec(JGrain):
+    STATE = {"events": (jnp.int32, ()), "last": (jnp.float32, ())}
+
+    @staticmethod
+    def initial_state(key_hash):
+        return {"events": jnp.int32(0), "last": jnp.float32(0)}
+
+    @j_method(args={"v": (jnp.float32, ())})
+    def on_next(state, args):
+        return {"events": state["events"] + 1,
+                "last": args["v"]}, state["events"]
+
+    @j_method(read_only=True)
+    def events(state, args):
+        return state, state["events"]
+
+    @j_method(read_only=True)
+    def ready(state, args):
+        return state, (state["events"] > 0).astype(jnp.int32)
 
 
 def _jax_reference() -> dict:
@@ -139,23 +189,40 @@ def _jax_reference() -> dict:
         out[f"hits_rows_{k}"] = v[:, :rk.HITS_KEYS]
     for k, v in host.read_merged(np.arange(rk.HITS_KEYS)).items():
         out[f"hits_merged_{k}"] = v
+
+    # the sparse route and Phase G's fan-out: the sample's own drives,
+    # run through the JAX package's runtime and grains
+    out.update(asyncio.run(rk.sparse_drive(
+        JRuntime(mesh=j_mesh(N), capacity_per_shard=64), CounterVec,
+        slice(None), jnp.asarray, np.asarray)))
+
+    def remesh(m):
+        return JRuntime(mesh=j_mesh(m), capacity_per_shard=-(-rk.FAN_SUBS
+                                                             // m))
+    out.update(asyncio.run(rk.fanout_drive(remesh(N), FanVec, remesh,
+                                           j_reshard)))
     return {k: np.asarray(v) for k, v in out.items()}
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    """Each world's rank outputs, spawned once for the module (the
-    worlds side by side, each joined within 60 s)."""
+def spawned(tmp_path_factory):
+    """Each world's ranks, started once for the module (the worlds side
+    by side, each joined within 60 s): the futures of their outputs."""
     dirs = {w: str(tmp_path_factory.mktemp(f"world{w}")) for w in WORLDS}
     with ThreadPoolExecutor(len(WORLDS)) as pool:
-        runs = {w: pool.submit(rk.spawn, w, dirs[w], "cpu", 60.0)
-                for w in WORLDS}
-        return {w: run.result() for w, run in runs.items()}
+        yield {w: pool.submit(rk.spawn, w, dirs[w], "cpu", 60.0)
+               for w in WORLDS}
 
 
 @pytest.fixture(scope="module")
-def jax_ref():
-    return _jax_reference()
+def jax_ref(spawned):
+    return _jax_reference()  # in this process while the ranks run
+
+
+@pytest.fixture(scope="module")
+def ranks(spawned, jax_ref):
+    """Each world's rank outputs."""
+    return {w: run.result() for w, run in spawned.items()}
 
 
 @pytest.fixture(scope="module")
@@ -183,22 +250,50 @@ SHARDED = {
               "sp_recv_valid", "sp_drops", "sp_counts", "sp_player_pos",
               "sp_player_beats", "sp_player_game", "sp_game_count"],
     "replica_rows": ["hits_rows_hits", "hits_rows_peak", "hits_rows_low"],
+    "sparse_route": ["sv_recv_lo", "sv_recv_hi", "sv_recv_amount",
+                     "sv_recv_valid", "sv_drops", "sv_rounds",
+                     "sv_rows_total", "sv_rows_hits"],
+    "fanout_rows": ["fo_rows_events", "fo_rows_last"],
+    "reshard_rows": [f"rs_rows_{m}_{f}" for m in (rk.FAN_SHRINK, N)
+                     for f in ("events", "last")],
 }
 WHOLE = {  # every rank holds the whole value
     "super_totals": ["sp_delivered", "sp_dropped"],
     "merged_reads": ["hits_merged_hits", "hits_merged_peak",
                      "hits_merged_low"],
     "replica_calls": ["hits_calls_0", "hits_calls_1", "hits_calls_2"],
+    "sparse_calls": ["sv_activate", "sv_skewed", "sv_locs", "sv_dir_count",
+                     "sv_totals", "sv_mapped", "sv_red_sum", "sv_red_max",
+                     "sv_red_min"],
+    "fanout_totals": ["fo_delivered", "fo_calls", "fo_red_sum",
+                      "fo_red_max", "fo_red_min", "fo_red_mean",
+                      "fo_mapped", "fo_ready", "fo_red_after_map"],
+    "reshard_totals": [f"rs_red_{m}" for m in (rk.FAN_SHRINK, N)],
 }
 CASES = sorted(SHARDED) + sorted(WHOLE)
+RTOL = {"fo_red_mean": 1e-6}  # a float sum over ranks, then a division
 
 
 def _check(ranks_out: list, ref: dict, case: str) -> None:
+    world = len(ranks_out)
+    if case.startswith("reshard") and rk.FAN_SHRINK % world:
+        # 4 shards do not divide over this world: every rank refused
+        for r in ranks_out:
+            assert f"do not divide over {world} ranks" in \
+                str(r["fo_reshard_refused"])
+            assert not any(k.startswith("rs_") for k in r)
+        return
     for key in SHARDED.get(case, []):
         _eq(_whole(ranks_out, key), ref[key], key)
     for key in WHOLE.get(case, []):
         for r in ranks_out:
-            _eq(r[key], ref[key], key)
+            if key in RTOL:
+                got, want = np.asarray(r[key]), np.asarray(ref[key])
+                assert got.dtype == want.dtype, (key, got.dtype, want.dtype)
+                np.testing.assert_allclose(got, want, rtol=RTOL[key],
+                                           err_msg=key)
+            else:
+                _eq(r[key], ref[key], key)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -230,6 +325,27 @@ def test_scenarios_exercise_overflow_and_deliver_every_message(ranks,
     want = np.bincount(np.arange(rk.N_PLAYERS) % rk.N_GAMES,
                        minlength=rk.N_GAMES) * rk.SUPERS
     np.testing.assert_array_equal(counts, want)
+    # the sparse route's duplicate target deferred one lane a tick, and
+    # every routed lane applied
+    rounds = _whole(out, "sv_rounds")
+    assert rounds.max() == 1
+    assert ((rounds >= 0) == _whole(out, "sv_recv_valid")).all()
+    # every broadcast edge landed; the busy keys' calls ran first
+    assert int(out[0]["fo_delivered"]) == rk.FAN_EVENTS * rk.FAN_SUBS
+    assert int(out[0]["fo_red_sum"]) == int(out[0]["fo_delivered"]) \
+        + rk.FAN_BUSY
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_join_when_times_out_on_every_rank_at_the_same_poll(ranks, world):
+    """Rank r entered ``join_when`` JOIN_DRIFT * r s late, so its own
+    deadline fell polls after rank 0's; the ranks agreed on it at every
+    poll, so each raised ``TimeoutError`` on the same poll (the group
+    joined within its 60 s, so no rank was left waiting in a reduction)."""
+    out = ranks[world]
+    assert all(bool(r["jt_raised"]) for r in out)
+    polls = {int(r["jt_polls"]) for r in out}
+    assert len(polls) == 1 and polls.pop() >= 1
 
 
 # ---------------------------------------------------------------------------
@@ -271,56 +387,20 @@ def test_group_mesh_shape_and_backend_checks(group1):
 
 def _refusals(mesh):
     """Every entry point that does not run across ranks, as a callable
-    over a fresh runtime on ``mesh``."""
-    def rt():
+    over a fresh runtime on ``mesh``: hosting, the off-loop worker and
+    ``move_rows`` between ranks."""
+    def moved():
         r = TRuntime(mesh, capacity_per_shard=64)
-        r.table(rk.PlayerGrain).ensure_dense(rk.N_PLAYERS)
-        return r
-
-    def aw(coro_fn):
-        async def run():
-            return await coro_fn()
-        return lambda: asyncio.run(run())
-
-    keys = np.arange(4)
-    lo = hi = torch.zeros((mesh.n_local, 2), dtype=torch.int32)
-    valid = torch.ones((mesh.n_local, 2), dtype=torch.bool)
-
-    async def call():
-        return await rt().call(rk.PlayerGrain, 3, "heartbeat",
-                               pos=np.zeros(2, np.float16))
-
-    async def call_group():
-        return rt().call_group(rk.PlayerGrain, "heartbeat", [
-            (3, {"pos": np.zeros(2, np.float16)}, True)])
+        tbl = r.table(rk.CounterVec)
+        tbl.lookup_or_allocate(1 << 40)
+        return tbl.move_rows([1 << 40], [1])
 
     return {
-        "actor": lambda: rt().actor(rk.PlayerGrain, 3),
-        "call": aw(call),
-        "call_group": aw(call_group),
-        "map_actors": aw(lambda: rt().map_actors(
-            rk.PlayerGrain, "heartbeat", keys)),
-        "reduce_actors": aw(lambda: rt().reduce_actors(
-            rk.PlayerGrain, "heartbeat", keys)),
-        "reduce_actors_partial": aw(lambda: rt().reduce_actors_partial(
-            rk.PlayerGrain, "heartbeat", keys)),
-        "broadcast_actors": aw(lambda: rt().broadcast_actors(
-            rk.PlayerGrain, "heartbeat", {"pos": np.zeros(2, np.float16)},
-            keys)),
-        "stream_fanout": aw(lambda: rt().stream_fanout(
-            rk.PlayerGrain, "heartbeat", keys, {})),
-        "join_when": aw(lambda: rt().join_when(rk.PlayerGrain, keys,
-                                               method="heartbeat")),
-        "route_sparse": lambda: rt().route(
-            rk.PlayerGrain, (lo, hi), {}, valid, sparse=True),
-        "apply_received_sparse": lambda: rt().apply_received(
-            rk.PlayerGrain, "heartbeat", (lo, hi), valid, {}, sparse=True),
-        "hashed_key": lambda: rt().table(rk.GameGrain).lookup_or_allocate(
-            1 << 40),
         "hosting": lambda: add_vector_grains(object(), rk.PlayerGrain,
                                              mesh=mesh),
-        "reshard_dense": lambda: reshard_dense(
-            rt().table(rk.PlayerGrain), TRuntime(make_mesh(4, "cpu"))),
+        "offloop_tick": lambda: TRuntime(mesh, options=DispatchOptions(
+            capacity_per_shard=64, offloop_tick=True)),
+        "move_rows": moved,
     }
 
 
@@ -331,6 +411,208 @@ REFUSED = sorted(_refusals(make_mesh(1, "cpu")))
 def test_entry_points_off_the_path_raise_naming_the_roadmap(group1, entry):
     with pytest.raises(GroupMeshError, match="ROADMAP Queue 4 item 1"):
         _refusals(make_mesh(N, "cpu", group=group1))[entry]()
+
+
+def test_offloop_lever_set_on_a_built_engine_raises_on_a_group(group1):
+    """The lever set on a built engine (as a silo sets it) refuses at
+    once on a group mesh, and stays off."""
+    rt = TRuntime(make_mesh(N, "cpu", group=group1), capacity_per_shard=64)
+    with pytest.raises(GroupMeshError, match="off-loop tick"):
+        rt.offloop_tick = True
+    assert rt.offloop_tick is False
+    rt.offloop_tick = False
+
+
+_HASHES = rk.sparse_hashes()
+
+
+def _hashed_dest(mesh):
+    """Phase 4's route inputs (this process's rows) as tensors."""
+    dest, amount = rk.sparse_inputs()
+    lo, hi = split64(dest)
+    dev = torch.from_numpy
+    return ((dev(lo), dev(hi)), {"amount": dev(amount)},
+            torch.ones(dest.shape, dtype=torch.bool))
+
+
+async def _activate(r):
+    return await asyncio.gather(*(r.call(rk.CounterVec, h, "add",
+                                         amount=np.int32(1))
+                                  for h in _HASHES))
+
+
+def _entries(mesh):
+    """Every entry point that now runs across ranks, as ``async fn(rt)``
+    over a fresh runtime on ``mesh`` (FanVec dense over FAN_SUBS keys),
+    returning what it answered."""
+    v = np.float32(0.5)
+    targets = np.array([1, 1, 5, 300, 7, 7, 7, 299])
+
+    async def actor(r):
+        ref = r.actor(rk.CounterVec, "player-7")
+        return [ref.key_hash, await ref.add(amount=np.int32(5)),
+                await ref.add(amount=np.int32(2))]
+
+    async def call(r):
+        return await asyncio.gather(*(
+            r.call(rk.FanVec, k, "on_next", v=np.float32(k))
+            for k in (3, 3, 17, 300, 3)))
+
+    async def call_group(r):
+        return await asyncio.gather(*r.call_group(rk.FanVec, "on_next", [
+            (k, {"v": np.float32(k)}, True) for k in (9, 40, 9, 41)]))
+
+    async def call_packed(r):
+        futs = r.call_packed(rk.FanVec, "on_next", [2, 200, 2],
+                             {"v": np.float32([1, 2, 3])},
+                             [True, True, True])
+        return await asyncio.gather(*futs)
+
+    async def map_actors(r):
+        await call_group(r)
+        return await r.map_actors(rk.FanVec, "on_next", {"v": v})
+
+    async def reduce_actors(r):
+        await r.broadcast_actors(rk.FanVec, "on_next", targets, {"v": v})
+        return [await r.reduce_actors(rk.FanVec, "events", combine=c)
+                for c in ("sum", "max", "min", "mean")]
+
+    async def reduce_actors_partial(r):
+        await r.broadcast_actors(rk.FanVec, "on_next", targets, {"v": v})
+        return await r.reduce_actors_partial(rk.FanVec, "events",
+                                             combine="mean")
+
+    async def broadcast_actors(r):
+        busy = r.call(rk.FanVec, 7, "on_next", v=np.float32(-1))
+        got = await r.broadcast_actors(
+            rk.FanVec, "on_next", targets,
+            {"v": np.arange(targets.size, dtype=np.float32)}, chunk=4)
+        return [got, await busy]
+
+    async def stream_fanout(r):
+        return await r.stream_fanout(rk.FanVec, "on_next", targets,
+                                     {"v": v}, chunk=3)
+
+    async def join_when(r):
+        await r.broadcast_actors(rk.FanVec, "on_next", targets, {"v": v})
+        return await r.join_when(rk.FanVec, np.unique(targets),
+                                 method="ready", timeout=5)
+
+    async def route_sparse(r):
+        await _activate(r)
+        rkeys, rpay, rvalid, drops = r.route(rk.CounterVec,
+                                             *_hashed_dest(mesh),
+                                             sparse=True)
+        return [rkeys, rpay, rvalid, drops]
+
+    async def apply_received_sparse(r):
+        await _activate(r)
+        rkeys, rpay, rvalid, _ = r.route(rk.CounterVec, *_hashed_dest(mesh),
+                                         sparse=True)
+        applied_masks = []
+        while bool(rvalid.any()):
+            _, applied = r.apply_received(rk.CounterVec, "add", rkeys,
+                                          rvalid, rpay, sparse=True)
+            applied_masks.append(applied)
+            rvalid = rvalid & ~applied
+        return applied_masks
+
+    async def hashed_key(r):
+        tbl = r.table(rk.CounterVec)
+        # 70 keys on shard 0 outgrow its 64 slots: grow on every rank
+        locs = [tbl.lookup_or_allocate(N * i + (1 << 40))
+                for i in range(70)]
+        tbl.release(1 << 40)
+        locs.append(tbl.lookup_or_allocate(1 << 41))
+        return [locs, tbl.capacity, tbl.device_dir.count,
+                tbl.read_row(N + (1 << 40))]
+
+    async def reshard(r):
+        await r.broadcast_actors(rk.FanVec, "on_next", targets, {"v": v})
+        out = []
+        tbl = r.table(rk.FanVec)
+        for m in (rk.FAN_SHRINK, N):
+            r2 = TRuntime(make_mesh(m, "cpu", group=mesh.group),
+                          capacity_per_shard=-(-rk.FAN_SUBS // m))
+            tbl = reshard_dense(tbl, r2)
+            out.append([tbl.snapshot()["events"][:, :tbl.capacity],
+                        await r2.reduce_actors(rk.FanVec, "events")])
+        return out
+
+    return {f.__name__: f for f in (
+        actor, call, call_group, call_packed, map_actors, reduce_actors,
+        reduce_actors_partial, broadcast_actors, stream_fanout, join_when,
+        route_sparse, apply_received_sparse, hashed_key, reshard)}
+
+
+ENTRIES = sorted(_entries(make_mesh(1, "cpu")))
+
+
+def _run_entry(mesh, name):
+    """(answer, FanVec and CounterVec rows) of one entry point, as
+    numpy, over a fresh runtime on ``mesh``."""
+    r = TRuntime(mesh, capacity_per_shard=64)
+    r.table(rk.FanVec).ensure_dense(rk.FAN_SUBS)
+    got = asyncio.run(asyncio.wait_for(_entries(mesh)[name](r), 30))
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.cpu().numpy()
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in sorted(x.items())}
+        if isinstance(x, (list, tuple)):
+            return [host(v) for v in x]
+        return np.asarray(x)
+    rows = {f"{c.__name__}_{k}": v[:, :r.table(c).capacity]
+            for c in (rk.FanVec, rk.CounterVec)
+            for k, v in r.table(c).snapshot().items()}
+    return [host(got), rows]
+
+
+def _same(got, want, where):
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), where
+        for k in want:
+            _same(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, list):
+        assert len(got) == len(want), where
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same(g, w, f"{where}[{i}]")
+    else:
+        _eq(got, want, where)
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_entry_points_run_on_a_group_of_one_as_on_one_device(group1, entry):
+    """Each entry point that used to raise ``GroupMeshError`` runs on a
+    gloo group of one rank and answers, and leaves its tables, exactly
+    as on the one-device port."""
+    got = _run_entry(make_mesh(N, "cpu", group=group1), entry)
+    want = _run_entry(make_mesh(N, "cpu"), entry)
+    _same(got, want, entry)
+
+
+def test_gather_and_agree_on_a_group_of_one(group1):
+    mesh = make_mesh(N, "cpu", group=group1)
+    for t in (torch.arange(N * 6, dtype=torch.int32).reshape(N, 3, 2),
+              torch.tensor([[True, False]] * N),
+              torch.randn(N, 3).to(torch.float16)):
+        _eq(gather(mesh, t), t, str(t.dtype))
+    assert agree(mesh, True) and not agree(mesh, False)
+    one = make_mesh(N, "cpu")
+    t = torch.ones(N, 2)
+    assert gather(one, t) is t and agree(one, 1) is True
+
+
+def test_reshard_between_meshes_over_different_groups_raises(group1):
+    """Across ranks both meshes of a reshard span the same group; a
+    group mesh and a one-device mesh do not, and the refusal names each
+    mesh's world."""
+    rt = TRuntime(make_mesh(N, "cpu", group=group1), capacity_per_shard=64)
+    rt.table(rk.FanVec).ensure_dense(rk.FAN_SUBS)
+    with pytest.raises(ValueError, match="over 1 rank"):
+        reshard_dense(rt.table(rk.FanVec),
+                      TRuntime(make_mesh(rk.FAN_SHRINK, "cpu")))
 
 
 def test_dense_read_row_of_a_key_on_another_rank_raises():
